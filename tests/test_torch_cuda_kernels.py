@@ -1,0 +1,154 @@
+"""torchfcn's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here needs a CUDA device and skips without one.  The file imports
+no JAX, so it runs on a GPU host without it; the suite's conftest imports
+JAX, hence ``--noconftest``:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from torchfcn.ops.caffe_layers import lrn_across_channels, max_pool_caffe
+from torchfcn.ops.cuda.group_rects import group_rectangles_cuda
+from torchfcn.ops.cuda.lrn import lrn_cuda
+from torchfcn.ops.cuda.lrn_pool import lrn_maxpool_cuda
+from torchfcn.ops.group_rects import group_rectangles
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.fixture
+def rng():
+    return np.random.default_rng(0)
+
+
+def _instances(rng, m, n):
+    """Clustered corner boxes (with a few singletons) under random masks."""
+    rects = rng.uniform(-100, 500, (m, n, 4)).astype(np.float32)
+    for i in range(m):
+        at = 0
+        while at < n * 3 // 4:
+            x1, y1 = rng.uniform(-20, 400, 2)
+            proto = np.array([x1, y1, x1 + rng.uniform(20, 150),
+                              y1 + rng.uniform(20, 150)])
+            size = min(int(rng.integers(1, 12)), n - at)
+            rects[i, at:at + size] = proto + rng.normal(0, 3, (size, 4))
+            at += size
+    valid = rng.random((m, n)) < 0.8
+    return torch.from_numpy(rects), torch.from_numpy(valid)
+
+
+def _assert_grouped_equal(got, want):
+    for field in ("rects", "weights", "valid"):
+        a, b = getattr(got, field).cpu(), getattr(want, field).cpu()
+        assert torch.equal(a, b), f"{field}: {int((a != b).sum())} differ"
+
+
+@pytest.mark.parametrize("m,n", [(1, 32), (4, 100), (32, 256), (5, 784),
+                                 (2, 1024)])
+def test_group_rects_kernel_matches_plain(dev, rng, m, n):
+    rects, valid = _instances(rng, m, n)
+    got = group_rectangles_cuda(rects.to(dev), valid.to(dev))
+    torch.cuda.synchronize()
+    _assert_grouped_equal(got, group_rectangles(rects, valid))
+
+
+def test_group_rects_kernel_rounds_means_half_to_even(dev):
+    """Clusters of 4 whose coordinate sums end in .5 after division."""
+    base = torch.tensor([[10., 20., 110., 120.], [-31., -41., 69., 79.]])
+    # offsets summing to 2 over 4 members: mean = proto + 0.5
+    offs = torch.tensor([[0.], [0.], [1.], [1.]])
+    rects = torch.cat([b + offs for b in base])[None]       # (1, 8, 4)
+    rects = torch.cat([rects, torch.zeros(1, 24, 4)], dim=1)
+    valid = torch.arange(32)[None] < 8
+    want = group_rectangles(rects, valid, group_threshold=3)
+    got = group_rectangles_cuda(rects.to(dev), valid.to(dev), 3)
+    torch.cuda.synchronize()
+    _assert_grouped_equal(got, want)
+    # 10.5 -> 10, 20.5 -> 20, 110.5 -> 110, 120.5 -> 120; negatives alike
+    assert want.valid.sum() == 2
+    assert want.rects[0, 0].tolist() == [10., 20., 110., 120.]
+    assert want.rects[0, 4].tolist() == [-30., -40., 70., 80.]
+
+
+def test_group_rects_kernel_rejects_what_it_does_not_take(dev):
+    rects = torch.zeros(2, 64, 4, device=dev)
+    valid = torch.ones(2, 64, dtype=torch.bool, device=dev)
+    with pytest.raises(TypeError):
+        group_rectangles_cuda(rects.double(), valid)
+    with pytest.raises(ValueError):
+        group_rectangles_cuda(rects.transpose(0, 1).contiguous()
+                              .transpose(0, 1), valid)
+    with pytest.raises(ValueError):
+        group_rectangles_cuda(torch.zeros(1, 1025, 4, device=dev),
+                              torch.ones(1, 1025, dtype=torch.bool,
+                                         device=dev))
+
+
+def _bf16_ulp(t):
+    _, exp = torch.frexp(t.float().abs())
+    return torch.ldexp(torch.ones_like(t, dtype=torch.float32), exp - 8)
+
+
+def _assert_lrn_close(got, want):
+    """bf16 within 1 ulp (rsqrt and summation order may differ by one
+    rounding), float32 within rtol 1e-5."""
+    if got.dtype == torch.bfloat16:
+        err = (got.float() - want.float()).abs().cpu()
+        assert (err <= _bf16_ulp(want).cpu()).all()
+    else:
+        torch.testing.assert_close(got.cpu(), want.cpu(), rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 112, 112, 64), (3, 7, 5, 192),
+                                   (4, 9, 3), (10, 2)])
+def test_lrn_kernel_matches_plain(dev, rng, dtype, shape):
+    x = (torch.from_numpy(rng.standard_normal(shape, np.float32)) * 60
+         ).to(dev, dtype)
+    got = lrn_cuda(x)
+    torch.cuda.synchronize()
+    _assert_lrn_close(got, lrn_across_channels(x))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 112, 112, 192), (1, 15, 17, 64),
+                                   (2, 4, 3, 8)])
+def test_lrn_maxpool_kernel_matches_plain(dev, rng, dtype, shape):
+    x = (torch.from_numpy(rng.standard_normal(shape, np.float32)) * 60
+         ).to(dev, dtype)
+    got = lrn_maxpool_cuda(x)
+    torch.cuda.synchronize()
+    want = max_pool_caffe(lrn_across_channels(x), 3, 2)
+    assert got.shape == want.shape
+    _assert_lrn_close(got, want)
+
+
+def test_lrn_kernels_reject_what_they_do_not_take(dev):
+    x = torch.ones(1, 8, 8, 16, device=dev)
+    with pytest.raises(TypeError):
+        lrn_cuda(x.half())
+    with pytest.raises(ValueError):
+        lrn_cuda(x.permute(0, 3, 1, 2))
+    with pytest.raises(ValueError):
+        lrn_cuda(x[0, 0, 0, 0])
+    with pytest.raises(ValueError):
+        lrn_maxpool_cuda(x[:, :2])
+
+
+def test_launch_counters_count_kernel_launches_only(dev):
+    x = torch.ones(1, 8, 8, 16, device=dev)
+    before = lrn_cuda.launches
+    lrn_cuda(x)
+    lrn_cuda(x.cpu())          # plain version: not a launch
+    assert lrn_cuda.launches == before + 1

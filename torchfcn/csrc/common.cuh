@@ -1,0 +1,45 @@
+// Shared helpers of the port's CUDA kernels.
+//
+// The kernels are built by torchfcn/ops/cuda/build.py with nvcc into one
+// shared library with a plain C interface (no PyTorch headers), loaded with
+// ctypes.  Each exported function launches on the stream it is given and
+// returns cudaGetLastError() as an int; the Python wrapper raises if it is
+// not 0.  The build passes -fmad=false, so a*b+c rounds twice exactly as the
+// reference's separate multiply and add do.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace torchfcn {
+
+// dtype codes passed by the wrappers
+enum DType : int { kFloat32 = 0, kBFloat16 = 1 };
+
+__device__ __forceinline__ float load_f(const float* p) { return *p; }
+__device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+
+__device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+// v rounded to the storage type T and widened back to float
+template <typename T>
+__device__ __forceinline__ float round_to(float v);
+template <>
+__device__ __forceinline__ float round_to<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+inline unsigned int blocks_for(long long total, int threads) {
+  return static_cast<unsigned int>((total + threads - 1) / threads);
+}
+
+}  // namespace torchfcn

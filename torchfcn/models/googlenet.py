@@ -1,0 +1,120 @@
+"""GoogLeNet (Inception-v1) DetectNet, the flagship detection model
+(``tpufcn/models/googlenet.py``; reference models/deploy.prototxt).
+
+Structure kept from the reference deploy graph:
+
+* ``Power shift:-127`` on raw 0..255 BGR pixels;
+* conv1 7x7/2, ceil-mode pool1, LRN (pool1/norm1), conv2 1x1 then 3x3, LRN
+  (conv2/norm2) and pool2 (fused into one kernel here);
+* nine inception blocks with **no** pool between inception_4e and
+  inception_5a, so the output grid has stride 16 (448x448 -> 28x28);
+* 1x1 coverage head with sigmoid and 1x1 bbox head.  Dropout (pool5/drop_s1)
+  is the identity at inference and is left out.
+
+conv1 is the plain stride-2 conv: the JAX package's space-to-depth form is a
+TPU lane-packing trick that ``tests/test_fast_conv.py`` pins identical to it.
+Compute runs in the parameters' dtype (bf16 for serving, float32 for parity).
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from torchfcn.models.layers import (
+    CaffeConv, LRN, LRNMaxPool, max_pool, nchw, nhwc)
+
+# Inception block widths: (1x1, 3x3_reduce, 3x3, 5x5_reduce, 5x5, pool_proj)
+INCEPTION_CFG = {
+    "3a": (64, 96, 128, 16, 32, 32),
+    "3b": (128, 128, 192, 32, 96, 64),
+    "4a": (192, 96, 208, 16, 48, 64),
+    "4b": (160, 112, 224, 24, 64, 64),
+    "4c": (128, 128, 256, 24, 64, 64),
+    "4d": (112, 144, 288, 32, 64, 64),
+    "4e": (256, 160, 320, 32, 128, 128),
+    "5a": (256, 160, 320, 32, 128, 128),
+    "5b": (384, 192, 384, 48, 128, 128),
+}
+
+
+class Inception(nn.Module):
+    """One inception module.  The three 1x1 convs that read the block input
+    run as one conv over their concatenated kernels (one larger GEMM); the
+    parameters stay three Caffe convs, as in the JAX package."""
+
+    def __init__(self, cin: int, n1: int, n3r: int, n3: int, n5r: int,
+                 n5: int, npp: int):
+        super().__init__()
+        self.b1x1 = CaffeConv(cin, n1, 1)
+        self.b3x3_reduce = CaffeConv(cin, n3r, 1)
+        self.b3x3 = CaffeConv(n3r, n3, 3, pad=1)
+        self.b5x5_reduce = CaffeConv(cin, n5r, 1)
+        self.b5x5 = CaffeConv(n5r, n5, 5, pad=2)
+        self.pool_proj = CaffeConv(cin, npp, 1)
+        self.widths = (n1, n3r, n5r)
+        self.out_channels = n1 + n3 + n5 + npp
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        convs = (self.b1x1, self.b3x3_reduce, self.b5x5_reduce)
+        y = F.relu(F.conv2d(x, torch.cat([c.weight for c in convs]),
+                            torch.cat([c.bias for c in convs])))
+        b1, b3, b5 = torch.split(y, self.widths, dim=1)
+        b3 = F.relu(self.b3x3(b3))
+        b5 = F.relu(self.b5x5(b5))
+        bp = F.relu(self.pool_proj(max_pool(x, 3, 1, 1)))
+        return torch.cat([b1, b3, b5, bp], dim=1)
+
+
+class GoogLeNetDetectNet(nn.Module):
+    """Input: raw BGR frames (B, H, W, 3), uint8 or float in [0, 255].
+
+    Returns {"coverage": (B, H/16, W/16, C) float32 sigmoid probabilities,
+             "bboxes": (B, H/16, W/16, 4C) float32 corner offsets}, NHWC.
+    """
+
+    def __init__(self, num_classes: int = 4):
+        super().__init__()
+        self.conv1 = CaffeConv(3, 64, 7, stride=2, pad=3)
+        self.norm1 = LRN()
+        self.conv2_reduce = CaffeConv(64, 64, 1)
+        self.conv2 = CaffeConv(64, 192, 3, pad=1)
+        self.norm2_pool2 = LRNMaxPool()
+        cin = 192
+        for name, widths in INCEPTION_CFG.items():
+            block = Inception(cin, *widths)
+            self.add_module(f"inception_{name}", block)
+            cin = block.out_channels
+        self.cvg = CaffeConv(cin, num_classes, 1)
+        self.bbox = CaffeConv(cin, 4 * num_classes, 1)
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> None:
+        """Seeded Caffe "xavier" init of every conv, in registration order."""
+        for module in self.modules():
+            if isinstance(module, CaffeConv):
+                module.init_xavier_(generator)
+
+    def forward(self, frames: torch.Tensor) -> Dict[str, torch.Tensor]:
+        dtype = self.conv1.weight.dtype
+        # deploy_transform: Power shift -127 (deploy.prototxt:9-18)
+        x = nchw((frames.to(torch.float32) - 127.0).to(dtype))
+        x = F.relu(self.conv1(x))
+        x = max_pool(x, 3, 2)                              # pool1/3x3_s2
+        x = self.norm1(x)                                  # pool1/norm1
+        x = F.relu(self.conv2_reduce(x))
+        x = F.relu(self.conv2(x))
+        x = self.norm2_pool2(x)                # conv2/norm2 + pool2/3x3_s2
+        x = self.inception_3a(x)
+        x = self.inception_3b(x)
+        x = max_pool(x, 3, 2)                              # pool3/3x3_s2
+        for blk in ("4a", "4b", "4c", "4d", "4e", "5a", "5b"):
+            # no pool between 4e and 5a: the stride stays 16
+            x = getattr(self, f"inception_{blk}")(x)
+        coverage = torch.sigmoid(self.cvg(x).float())
+        bboxes = self.bbox(x).float()
+        return {"coverage": nhwc(coverage).contiguous(),
+                "bboxes": nhwc(bboxes).contiguous()}

@@ -1,0 +1,111 @@
+"""Build and load the port's CUDA kernels.
+
+All ``torchfcn/csrc/*.cu`` sources compile with ``nvcc`` for ``sm_90a``
+(Hopper) into one shared library with a plain C interface, loaded with
+``ctypes`` (a few seconds to build; no PyTorch headers).  The library is
+built at first use into ``torchfcn/_build`` (listed in ``.gitignore``), named
+by a hash of the sources and flags, so a changed source rebuilds.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+PACKAGE_DIR = Path(__file__).resolve().parents[2]
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3",
+    # a*b+c rounds twice, like the reference's separate multiply and add
+    "-fmad=false",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+# exported C functions: argument types (pointers and the stream as c_void_p)
+_SIGNATURES = {
+    # rects, valid, out_rects, out_weights, out_valid, m, n, threshold, eps,
+    # stream
+    "torchfcn_group_rects": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
+    # x, y, pixels, channels, size, alpha/size, k, dtype, stream
+    "torchfcn_lrn": (_P, _P, _L, _I, _I, _F, _F, _I, _P),
+    # x, y, batch, h, w, channels, ho, wo, size, alpha/size, k, dtype, stream
+    "torchfcn_lrn_maxpool": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I,
+                             _P),
+}
+
+# dtype codes of csrc/common.cuh
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    return os.path.join(cuda_home, "bin", "nvcc")
+
+
+def build() -> Path:
+    """Compile the kernels unless this exact build exists; returns the
+    library's path, named by a hash of the sources and flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC_DIR.glob("*.cu*")):
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    out = BUILD_DIR / f"libtorchfcn_kernels-{digest.hexdigest()[:16]}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *map(str, sorted(CSRC_DIR.glob("*.cu")))]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)   # atomic: no process loads a half-written file
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if needed."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.torchfcn_error_string.argtypes = (ctypes.c_int,)
+    lib.torchfcn_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call exported kernel launcher ``name`` on ``device`` and its current
+    stream (appended as the last argument); raise if it reports a CUDA
+    error."""
+    lib = library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        status = getattr(lib, name)(*args, stream)
+    if status != 0:
+        msg = lib.torchfcn_error_string(status).decode()
+        raise RuntimeError(f"{name}: CUDA error {status} ({msg})")
+
+
+def require_cuda(t: torch.Tensor, what: str) -> None:
+    """Raise unless ``t`` is on a CUDA device (the kernels' only device)."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{what}: expected a CPU or CUDA tensor, got one on "
+                         f"{t.device}")

@@ -1,0 +1,62 @@
+"""Batched groupRectangles NMS: wrapper of ``csrc/group_rects.cu``.
+
+Counterpart of ``tpufcn/ops/pallas/group_rects.py::group_rectangles_pallas``.
+The plain version is ``torchfcn.ops.group_rects.group_rectangles``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from torchfcn.ops import group_rects as plain
+from torchfcn.ops.cuda import build
+
+MAX_CANDIDATES = 1024   # one thread per candidate in one thread block
+
+
+def group_rectangles_cuda(rects: torch.Tensor,
+                          valid: torch.Tensor,
+                          group_threshold: int = 3,
+                          eps: float = 0.2) -> plain.GroupedRects:
+    """groupRectangles over M instances of N candidates.
+
+    Args:
+      rects: (M, N, 4) float32 contiguous, read as (x, y, w, h).
+      valid: (M, N) bool contiguous.
+    Returns GroupedRects(rects (M, N, 4) float32, weights (M, N) int32,
+    valid (M, N) bool), results in root-index slots.
+    """
+    if rects.device.type == "cpu":
+        return plain.group_rectangles(rects, valid, group_threshold, eps)
+    build.require_cuda(rects, "group_rectangles_cuda")
+    if rects.dim() != 3 or rects.shape[-1] != 4:
+        raise ValueError(f"rects must be (M, N, 4), got {tuple(rects.shape)}")
+    m, n = rects.shape[:2]
+    if valid.shape != (m, n):
+        raise ValueError(f"valid must be {(m, n)}, got {tuple(valid.shape)}")
+    if rects.dtype != torch.float32 or valid.dtype != torch.bool:
+        raise TypeError(f"need float32 rects and bool valid, got "
+                        f"{rects.dtype} and {valid.dtype}")
+    if valid.device != rects.device:
+        raise ValueError("rects and valid must be on one device")
+    if not (rects.is_contiguous() and valid.is_contiguous()):
+        raise ValueError("rects and valid must be contiguous")
+    if not 0 < n <= MAX_CANDIDATES:
+        raise ValueError(f"the kernel takes 1..{MAX_CANDIDATES} candidates "
+                         f"per instance, got {n}")
+
+    out = plain.GroupedRects(
+        rects=torch.empty_like(rects),
+        weights=torch.empty((m, n), dtype=torch.int32, device=rects.device),
+        valid=torch.empty((m, n), dtype=torch.bool, device=rects.device))
+    if m == 0:
+        return out
+    build.launch("torchfcn_group_rects", rects.device,
+                 rects.data_ptr(), valid.data_ptr(), out.rects.data_ptr(),
+                 out.weights.data_ptr(), out.valid.data_ptr(), m, n,
+                 int(group_threshold), float(eps))
+    group_rectangles_cuda.launches += 1
+    return out
+
+
+group_rectangles_cuda.launches = 0

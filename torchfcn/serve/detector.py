@@ -1,0 +1,169 @@
+"""The serving pipeline of the port (``tpufcn/serve/detector.py``):
+
+    raw BGR frames -> Power(-127) shift -> forward -> grid decode -> top-K
+    candidate select -> groupRectangles NMS -> rescale to frame coords
+
+PyTorch runs it eagerly; the LRN and groupRectangles steps are hand-written
+CUDA kernels on a CUDA device and their plain versions on the CPU.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from torchfcn.core.config import DetectorConfig
+from torchfcn.models import build as build_model, get_spec
+from torchfcn.ops.grid_codec import decode_gridboxes
+from torchfcn.ops.group_rects import vote_boxes_batched
+
+# select_candidates clamps rounded coords to what the reference's packed sort
+# payload holds, so that results stay bit-identical to it
+_COORD_MIN, _COORD_MAX = -2048.0, 2047.0
+
+
+def select_candidates(cvg: torch.Tensor, boxes: torch.Tensor,
+                      valid: torch.Tensor, k: int):
+    """Top-K candidates by coverage among valid cells, ties by cell index.
+
+    Args:
+      cvg: (..., M) coverage scores in [0, 1].
+      boxes: (..., M, 4) decoded cell boxes.
+      valid: (..., M) bool.
+      k: candidates kept per instance.
+    Returns (boxes (..., k, 4) rounded to integers and clamped to
+    [-2048, 2047], valid (..., k)).  groupRectangles rounds on entry anyway;
+    invalid cells sort last with score -1.
+    """
+    key = -torch.where(valid, cvg, -1.0)
+    key, order = torch.sort(key, dim=-1, stable=True)
+    order = order[..., :k]
+    r = torch.clamp(torch.round(boxes), _COORD_MIN, _COORD_MAX)
+    cand = torch.gather(r, -2, order[..., None].expand(*order.shape, 4))
+    return cand, key[..., :k] <= 0.0
+
+
+class DetectionResult(NamedTuple):
+    """Fixed-capacity per-class detections, frame coordinates.
+
+    boxes: (B, C, K, 4) int32 corner boxes (x1, y1, x2, y2).
+    confidence: (B, C, K) float32 log-votes (reference conf = log(weight)).
+    valid: (B, C, K) bool.
+    """
+
+    boxes: torch.Tensor
+    confidence: torch.Tensor
+    valid: torch.Tensor
+
+    def to_lists(self):
+        """Host-side: list (per image) of (box, label, conf) tuples."""
+        boxes = self.boxes.cpu().numpy()
+        conf = self.confidence.cpu().numpy()
+        valid = self.valid.cpu().numpy()
+        out = []
+        for b in range(boxes.shape[0]):
+            dets = []
+            for c in range(boxes.shape[1]):
+                for i in np.nonzero(valid[b, c])[0]:
+                    dets.append((boxes[b, c, i].tolist(), int(c),
+                                 float(conf[b, c, i])))
+            out.append(dets)
+        return out
+
+
+class Detector:
+    """Detector over the GoogLeNet DetectNet family.
+
+    Example:
+        det = Detector("googlenet_detectnet", max_candidates=256)
+        result = det(frames_u8)   # (B, 448, 448, 3) BGR
+
+    ``device`` defaults to "cuda" and raises if CUDA is absent; pass
+    "cpu" to run the plain versions of the kernels.  Weights are the seeded
+    Caffe "xavier" init (``rng_seed``) until loaded, e.g. with
+    ``torchfcn.convert.from_jax.load_jax_params(det.model, tree)``.
+    """
+
+    def __init__(self,
+                 model_name: str = "googlenet_detectnet",
+                 config: Optional[DetectorConfig] = None,
+                 dtype: torch.dtype = torch.bfloat16,
+                 max_candidates: Optional[int] = None,
+                 rng_seed: int = 0,
+                 device="cuda"):
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("Detector(device='cuda') needs a CUDA device; "
+                               "pass device='cpu' to run on the CPU")
+        if self.device.type not in ("cpu", "cuda"):
+            raise ValueError(f"Detector runs on 'cuda' or 'cpu', got "
+                             f"{self.device}")
+        self.spec = get_spec(model_name)
+        self.config = config or DetectorConfig(
+            grid=self.spec.grid, model=model_name,
+            max_candidates=max_candidates)
+        self.grid = self.config.grid
+        model = build_model(model_name)
+        model.init_weights(torch.Generator().manual_seed(rng_seed))
+        self.model = model.to(device=self.device, dtype=dtype,
+                              memory_format=torch.channels_last).eval()
+
+    def _forward(self, frames: torch.Tensor):
+        """Model forward -> (coverage, bboxes) NHWC grids.  The model
+        applies the Power(-127) shift to the raw frames."""
+        out = self.model(frames)
+        return out["coverage"], out["bboxes"]
+
+    def _decode_nms(self, coverage: torch.Tensor, bboxes: torch.Tensor,
+                    in_hw: Tuple[int, int]) -> DetectionResult:
+        cfg, grid = self.config, self.grid
+        in_h, in_w = in_hw
+
+        bg = self.spec.background_channel
+        if bg is not None:
+            # Skip the background coverage channel and pair foreground class
+            # k with bbox block k, the block its training encoder writes
+            # (tpufcn/serve/detector.py:253-271).
+            keep = [c for c in range(grid.num_classes) if c != bg]
+            coverage = coverage[..., keep]
+            bboxes = bboxes[..., [4 * c + i for c in keep for i in range(4)]]
+            dec_grid = dataclasses.replace(grid, num_classes=len(keep))
+        else:
+            dec_grid = grid
+
+        k = min(cfg.candidate_capacity, dec_grid.grid_h * dec_grid.grid_w)
+        boxes, cvg, valid = decode_gridboxes(coverage, bboxes, dec_grid,
+                                             cfg.detection_threshold)
+        cand_boxes, cand_valid = select_candidates(cvg, boxes, valid, k)
+        b, c = cand_boxes.shape[:2]
+        det = vote_boxes_batched(
+            cand_boxes.reshape(b * c, k, 4), cand_valid.reshape(b * c, k),
+            cfg.min_boxes, cfg.nms_eps, cfg.min_box_height)
+
+        # back to frame coords (reference fcn_object_detector.py:396-405):
+        # int boxes, then scaled values truncated into an int array
+        diff = torch.tensor([in_w / grid.im_width, in_h / grid.im_height] * 2,
+                            dtype=torch.float32, device=det.boxes.device)
+        d_boxes = torch.trunc(torch.trunc(det.boxes) * diff).int()
+        return DetectionResult(d_boxes.reshape(b, c, k, 4),
+                               det.confidence.reshape(b, c, k),
+                               det.valid.reshape(b, c, k))
+
+    @torch.inference_mode()
+    def __call__(self, frames) -> DetectionResult:
+        """frames: (B, H, W, 3) BGR, uint8 or float in [0, 255], at the
+        net's input size (resizing other sizes is not ported yet)."""
+        frames = torch.as_tensor(frames, device=self.device)
+        net_hw = (self.grid.im_height, self.grid.im_width)
+        if frames.dim() != 4 or frames.shape[-1] != 3:
+            raise ValueError(f"frames must be (B, H, W, 3), got "
+                             f"{tuple(frames.shape)}")
+        if tuple(frames.shape[1:3]) != net_hw:
+            raise ValueError(
+                f"frames are {tuple(frames.shape[1:3])}, the net takes "
+                f"{net_hw}: resizing frames is not ported yet")
+        coverage, bboxes = self._forward(frames)
+        return self._decode_nms(coverage, bboxes, net_hw)
