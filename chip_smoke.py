@@ -5,24 +5,40 @@ Run from the repository root:
 
     python3 chip_smoke.py
 
-Phases, each printing one line; any failure raises and exits non-zero:
+Phases, each printing one line; any failure raises and exits non-zero.
+TF32 is off throughout, so the float32 plain versions are full float32.
 
 1. device: the card's name and power limit, as nvidia-smi reports them;
-2. build: compile ``torchfcn/csrc`` with nvcc for sm_90a;
+2. build: compile ``torchfcn/csrc`` with nvcc for sm_90a, one nvcc per
+   source, in parallel;
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
-   at the serving path's shapes, with both times (CUDA events, median of
+   at the serving paths' shapes, with both times (CUDA events, median of
    25 runs after 3 warm-up runs).  groupRectangles must match exactly; LRN
-   within 1 bf16 ulp in bf16 and rtol 1e-5 in float32;
-4. parity: the float32 forward (TF32 off) of 2 frames on the card and on
-   the CPU with the same weights, heads within atol 1e-3; then decode + NMS
-   of the card's heads on both devices, DetectionResult exactly equal;
+   within 1 bf16 ulp in bf16 and rtol 1e-5 in float32; the stem tail at
+   (8, 112, 112, 64), at least 99.9 % of the entries bit-equal, the rest
+   within max(0.26, 2 bf16 ulps) in bf16 (0.26 is the JAX package's own
+   stem-kernel tolerance) and within one e5m2 step in e5m2: the kernel and
+   cuDNN sum in other orders, and a flipped rounding of an intermediate
+   moves the conv sums downstream of it by a weight times its ulp;
+4. parity: the float32 forward of 2 frames on the card and on the CPU with
+   the same weights, heads within atol 1e-3; then decode + NMS of the
+   card's heads on both devices, DetectionResult exactly equal;
 5. main path: ``Detector("googlenet_detectnet", max_candidates=256)`` in
-   bf16 on 8 seeded 448x448 frames.  Every kernel must have launched in
-   that run; the detections must equal decode + NMS of the same heads on
-   the CPU.  Prints detections, frames/s and latency per batch, then
-   checks and times the groupRectangles kernel again on that run's own
-   candidates, whose numbers go into the JSON line (its time depends on
-   the data: it sweeps once per step of a cluster's diameter).
+   bf16 on 8 seeded 448x448 frames.  Every kernel of the path must have
+   launched in that run; the detections must equal decode + NMS of the same
+   heads on the CPU.  Prints detections, frames/s and latency per batch,
+   then checks and times the groupRectangles kernel again on that run's own
+   candidates, whose numbers go into the JSON line (its time depends on the
+   data: it sweeps once per step of a cluster's diameter).  Then 8 frames
+   of 640x480, counted again: the card's resize within 1e-3 of the CPU's,
+   detections equal to decode + NMS of the same heads on the CPU, every
+   box centre inside the frame;
+6. serving path: ``Detector("googlenet_detectnet_serving",
+   max_candidates=256)``, e5m2 storage with bf16 compute, on 8 seeded
+   448x448 frames.  The stem-tail and groupRectangles kernels must have
+   launched in that run, the LRN kernels not; the detections must equal
+   decode + NMS of the same heads on the CPU.  Prints detections, frames/s
+   and latency per batch.
 
 Then one JSON line of per-kernel numbers, and last the result line
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits 1 and prints no
@@ -46,6 +62,9 @@ SEED = 0
 BATCH, NET = 8, 448
 K = 256
 REPS, WARMUP = 25, 3
+# the stem tail's bf16 tolerance: the JAX package's own for its stem kernel
+# (tests/test_pallas_kernels.py:61), or 2 ulps where that is larger
+STEM_ATOL = 0.26
 
 
 def log(phase: str, msg: str) -> None:
@@ -163,7 +182,62 @@ def phase_kernels(rng) -> dict:
                 f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
         # the serving path runs bf16: its numbers go into the JSON line
         rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    rows["stem_tail"] = check_stem_tail(rng, dev)
     return rows
+
+
+def e5m2_steps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """How many e5m2 values apart two e5m2 tensors are, entrywise."""
+    def ordinal(t):
+        code = t.view(torch.uint8).int()
+        return torch.where(code >= 128, -(code & 127), code & 127)
+    return (ordinal(a) - ordinal(b)).abs()
+
+
+def check_stem_tail(rng, dev) -> dict:
+    """The stem-tail kernel against its plain version (float32 convs of
+    the bf16 values, TF32 off) in bf16 and in e5m2 at the serving path's
+    shape, with the seeded model's conv2 weights and random biases; returns
+    the e5m2 instance's numbers, the serving path's."""
+    from torchfcn.models import build as build_model
+    from torchfcn.ops.cuda.stem import stem_tail_cuda
+    from torchfcn.ops.stem import stem_tail
+    model = build_model("googlenet_detectnet_serving")
+    model.init_weights(torch.Generator().manual_seed(SEED))
+    weights = [p.detach().to(dev, torch.bfloat16) for p in (
+        model.conv2_reduce.weight, model.conv2_reduce.bias,
+        model.conv2.weight, model.conv2.bias)]
+    for i in (1, 3):
+        weights[i] = (torch.from_numpy(rng.normal(
+            0, 0.1, weights[i].shape[0]).astype(np.float32))
+            .to(dev, torch.bfloat16))
+    shape = (BATCH, 112, 112, 64)
+    x = torch.from_numpy(np.abs(rng.standard_normal(shape, np.float32))
+                         * 40).to(dev)
+    for store in (torch.bfloat16, torch.float8_e5m2):
+        xs = x.to(store)
+        arg = None if store == torch.bfloat16 else store
+        got = stem_tail_cuda(xs, *weights, arg)
+        want = stem_tail(xs, *weights, arg)
+        torch.cuda.synchronize()
+        g, w = got.float(), want.float()
+        err = (g - w).abs()
+        equal = float((g == w).float().mean())
+        if arg is None:
+            bad = err > torch.clamp(2 * bf16_ulp(w), min=STEM_ATOL)
+        else:
+            bad = e5m2_steps(got, want) > 1
+        if bool(bad.any()) or equal < 0.999:
+            raise AssertionError(
+                f"stem_tail {store}: {int(bad.sum())} entries beyond "
+                f"tolerance, {equal:.6f} bit-equal; got "
+                f"{g[bad][:5].tolist()} want {w[bad][:5].tolist()}")
+        ms = median_ms(lambda: stem_tail_cuda(xs, *weights, arg))
+        plain_ms = median_ms(lambda: stem_tail(xs, *weights, arg))
+        log("kernels", f"stem_tail {shape} {store}: max|err| "
+            f"{float(err.max()):.3g}, {equal * 100:.4f} % bit-equal, "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    return dict(max_abs_err=float(err.max()), ms=ms, plain_ms=plain_ms)
 
 
 def bias_heads(det) -> None:
@@ -186,8 +260,6 @@ def assert_same_result(a, b, what: str) -> None:
 
 def phase_parity(rng) -> None:
     from torchfcn.serve.detector import Detector
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     frames = rng.integers(0, 256, (2, NET, NET, 3), dtype=np.uint8)
     dets = [Detector("googlenet_detectnet", max_candidates=K,
                      dtype=torch.float32, rng_seed=SEED, device=d)
@@ -213,37 +285,67 @@ def phase_parity(rng) -> None:
         f"and cpu ({n_det} detections)")
 
 
-def phase_main_path(rng, counters, card: str):
-    """Returns the launch counts of one main-path run and the
-    groupRectangles kernel's numbers on that run's candidates.  ``card`` is
-    nvidia-smi's name and power limit, printed beside the rate."""
-    from torchfcn.ops.grid_codec import decode_gridboxes
-    from torchfcn.serve.detector import Detector, select_candidates
-    det = Detector("googlenet_detectnet", max_candidates=K,
-                   dtype=torch.bfloat16, rng_seed=SEED, device="cuda")
-    bias_heads(det)
-    frames = rng.integers(0, 256, (BATCH, NET, NET, 3), dtype=np.uint8)
-
+def run_counted(det, frames, counters, required, what: str):
+    """One run of ``det`` on ``frames`` with every launch count set to 0
+    just before it and read just after; raises if a kernel of ``required``
+    did not launch.  Returns (result, launches)."""
     for fn in counters.values():
         fn.launches = 0
     res = det(frames)
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in counters.items()}
-    missing = [name for name, n in launches.items() if n == 0]
+    missing = [name for name in required if launches[name] == 0]
     if missing:
-        raise AssertionError(f"main path launched no {missing} kernel")
-
-    if res.boxes.shape != (BATCH, 4, K, 4) or res.boxes.dtype != torch.int32:
-        raise AssertionError(f"main path: boxes {tuple(res.boxes.shape)} "
+        raise AssertionError(f"{what} launched no {missing} kernel")
+    k = min(K, det.grid.grid_h * det.grid.grid_w)
+    if res.boxes.shape != (len(frames), det.grid.num_classes, k, 4) \
+            or res.boxes.dtype != torch.int32:
+        raise AssertionError(f"{what}: boxes {tuple(res.boxes.shape)} "
                              f"{res.boxes.dtype}")
     if not bool(torch.isfinite(res.confidence).all()):
-        raise AssertionError("main path: non-finite confidence")
+        raise AssertionError(f"{what}: non-finite confidence")
+    if int(res.valid.sum()) == 0:
+        raise AssertionError(f"{what}: no detections, nothing was compared")
+    return res, launches
+
+
+def check_against_cpu(det, frames, res, what: str):
+    """``res`` must equal decode + NMS on the CPU of the card's heads for
+    the same frames; returns those heads."""
+    from torchfcn.serve.detector import Detector
     with torch.inference_mode():
         heads = det._forward(torch.as_tensor(frames, device="cuda"))
-        cpu = Detector("googlenet_detectnet", max_candidates=K,
+        cpu = Detector(det.config.model, max_candidates=K,
                        dtype=torch.bfloat16, rng_seed=SEED, device="cpu")
-        want = cpu._decode_nms(*(h.cpu() for h in heads), (NET, NET))
-    assert_same_result(res, want, "main path vs decode+NMS on the cpu")
+        want = cpu._decode_nms(*(h.cpu() for h in heads), frames.shape[1:3])
+    assert_same_result(res, want, f"{what} vs decode+NMS on the cpu")
+    return heads
+
+
+def batch_latency(det, frames) -> float:
+    """Median host-clock seconds per batch, each ending in a synchronize."""
+    times = []
+    for _ in range(WARMUP + REPS):
+        t0 = time.perf_counter()
+        det(frames)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times[WARMUP:])
+
+
+def phase_main_path(rng, counters, card: str):
+    """Returns the launch counts of one main-path run and the
+    groupRectangles kernel's numbers on that run's candidates.  ``card`` is
+    nvidia-smi's name and power limit, printed beside the rate."""
+    from torchfcn.ops.grid_codec import decode_gridboxes
+    from torchfcn.ops.image import resize_bilinear
+    from torchfcn.serve.detector import Detector, select_candidates
+    det = Detector("googlenet_detectnet", max_candidates=K,
+                   dtype=torch.bfloat16, rng_seed=SEED, device="cuda")
+    bias_heads(det)
+    frames = rng.integers(0, 256, (BATCH, NET, NET, 3), dtype=np.uint8)
+    res, launches = run_counted(det, frames, counters, counters, "main path")
+    heads = check_against_cpu(det, frames, res, "main path")
     # the kernel on the main path's own candidates: its JSON numbers
     with torch.inference_mode():
         boxes, cvg, valid = decode_gridboxes(
@@ -252,20 +354,57 @@ def phase_main_path(rng, counters, card: str):
     row = check_group_rects(cand.reshape(-1, K, 4).contiguous(),
                             cand_valid.reshape(-1, K).contiguous(),
                             "the main path's candidates")
-
-    times = []
-    for _ in range(WARMUP + REPS):
-        t0 = time.perf_counter()
-        det(frames)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    latency = statistics.median(times[WARMUP:])
+    latency = batch_latency(det, frames)
     log("main", f"Detector googlenet_detectnet bf16 B={BATCH} {NET}x{NET} "
         f"K={K}: {int(res.valid.sum())} detections; launches {launches}; "
         f"{BATCH / latency:.1f} frames/s, {latency * 1e3:.3f} ms per batch "
         f"(median of {REPS}, host clock, uint8 frames from host memory) "
         f"on {card}")
+
+    # camera frames of another size: resized on the card
+    cam = rng.integers(0, 256, (BATCH, 480, 640, 3), dtype=np.uint8)
+    res, cam_launches = run_counted(det, cam, counters, counters,
+                                    "main path on 640x480 frames")
+    resized = resize_bilinear(torch.as_tensor(cam, device="cuda"),
+                              (NET, NET))
+    diff = float((resized.cpu()
+                  - resize_bilinear(torch.from_numpy(cam), (NET, NET)))
+                 .abs().max())
+    if not diff <= 1e-3:
+        raise AssertionError(f"resize: card and cpu differ by {diff} > 1e-3")
+    check_against_cpu(det, cam, res, "main path on 640x480 frames")
+    boxes = res.boxes[res.valid].float()
+    cx, cy = (boxes[:, 0] + boxes[:, 2]) / 2, (boxes[:, 1] + boxes[:, 3]) / 2
+    if not bool(((cx >= 0) & (cx < 640) & (cy >= 0) & (cy < 480)).all()):
+        raise AssertionError("640x480 frames: a box centre lies outside")
+    log("main", f"640x480 frames resized to {NET}x{NET} on the card: "
+        f"max|card-cpu| {diff:.3g} (atol 1e-3); {int(res.valid.sum())} "
+        f"detections in frame coordinates, equal to decode+NMS on the cpu; "
+        f"launches {cam_launches}")
     return launches, row
+
+
+def phase_serving(rng, counters, card: str) -> dict:
+    """The fp8 serving preset; returns its launch counts."""
+    from torchfcn.serve.detector import Detector
+    det = Detector("googlenet_detectnet_serving", max_candidates=K,
+                   dtype=torch.bfloat16, rng_seed=SEED, device="cuda")
+    bias_heads(det)
+    frames = rng.integers(0, 256, (BATCH, NET, NET, 3), dtype=np.uint8)
+    res, launches = run_counted(det, frames, counters,
+                                ("stem_tail", "group_rects"), "serving path")
+    if launches["lrn"] or launches["lrn_maxpool"]:
+        raise AssertionError(f"serving path launched LRN kernels: "
+                             f"{launches}")
+    check_against_cpu(det, frames, res, "serving path")
+    latency = batch_latency(det, frames)
+    log("serving", f"Detector googlenet_detectnet_serving e5m2 storage, "
+        f"bf16 compute, B={BATCH} {NET}x{NET} K={K}: "
+        f"{int(res.valid.sum())} detections; launches {launches}; "
+        f"{BATCH / latency:.1f} frames/s, {latency * 1e3:.3f} ms per batch "
+        f"(median of {REPS}, host clock, uint8 frames from host memory) "
+        f"on {card}")
+    return launches
 
 
 def main() -> int:
@@ -276,7 +415,11 @@ def main() -> int:
     from torchfcn.ops.cuda.group_rects import group_rectangles_cuda
     from torchfcn.ops.cuda.lrn import lrn_cuda
     from torchfcn.ops.cuda.lrn_pool import lrn_maxpool_cuda
+    from torchfcn.ops.cuda.stem import stem_tail_cuda
 
+    # the float32 plain versions and the parity phase run full float32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -297,6 +440,8 @@ def main() -> int:
     counters = {"group_rects": group_rectangles_cuda, "lrn": lrn_cuda,
                 "lrn_maxpool": lrn_maxpool_cuda}
     launches, rows["group_rects"] = phase_main_path(rng, counters, card)
+    counters["stem_tail"] = stem_tail_cuda
+    launches["stem_tail"] = phase_serving(rng, counters, card)["stem_tail"]
 
     meta = {
         "group_rects": ("torchfcn/csrc/group_rects.cu",
@@ -304,6 +449,8 @@ def main() -> int:
         "lrn": ("torchfcn/csrc/lrn.cu", "tpufcn/ops/pallas/lrn.py:38"),
         "lrn_maxpool": ("torchfcn/csrc/lrn.cu",
                         "tpufcn/ops/pallas/lrn_pool.py:94"),
+        "stem_tail": ("torchfcn/csrc/stem.cu",
+                      "tpufcn/ops/pallas/stem.py:126"),
     }
     kernels = [dict(name=name, route="cuda", source=meta[name][0],
                     replaces=meta[name][1], launches=launches[name],

@@ -15,7 +15,9 @@ from torchfcn.ops.caffe_layers import lrn_across_channels, max_pool_caffe
 from torchfcn.ops.cuda.group_rects import group_rectangles_cuda
 from torchfcn.ops.cuda.lrn import lrn_cuda
 from torchfcn.ops.cuda.lrn_pool import lrn_maxpool_cuda
+from torchfcn.ops.cuda.stem import stem_tail_cuda
 from torchfcn.ops.group_rects import group_rectangles
+from torchfcn.ops.stem import stem_tail
 
 pytestmark = pytest.mark.cuda
 
@@ -152,3 +154,64 @@ def test_launch_counters_count_kernel_launches_only(dev):
     lrn_cuda(x)
     lrn_cuda(x.cpu())          # plain version: not a launch
     assert lrn_cuda.launches == before + 1
+
+
+def _stem_weights(rng, dev):
+    """Xavier-scale conv2_reduce / conv2 weights with random biases, bf16."""
+    shapes = ((64, 64, 1, 1), (64,), (192, 64, 3, 3), (192,))
+    scales = (3 ** 0.5 / 8, 0.1, 3 ** 0.5 / 24, 0.1)
+    return [torch.from_numpy((rng.uniform(-1, 1, s) * a).astype(np.float32))
+            .to(dev, torch.bfloat16) for s, a in zip(shapes, scales)]
+
+
+def _e5m2_steps(a, b):
+    def ordinal(t):
+        code = t.view(torch.uint8).int()
+        return torch.where(code >= 128, -(code & 127), code & 127)
+    return (ordinal(a) - ordinal(b)).abs()
+
+
+@pytest.mark.parametrize("store", [None, torch.float8_e5m2])
+@pytest.mark.parametrize("shape", [(8, 112, 112, 64), (1, 30, 30, 64)])
+def test_stem_tail_kernel_matches_plain(dev, rng, store, shape):
+    """Against the plain version with TF32 off: at least 99.9 % of the
+    entries bit-equal; the rest within max(0.26, 2 bf16 ulps) in bf16 (0.26
+    is the JAX package's stem-kernel tolerance) and one e5m2 step in e5m2.
+    The kernel and cuDNN sum in other orders, and a flipped rounding of an
+    intermediate moves the conv sums downstream of it by a weight times
+    its ulp."""
+    torch.backends.cudnn.allow_tf32 = False
+    weights = _stem_weights(rng, dev)
+    x = (torch.from_numpy(np.abs(rng.standard_normal(shape, np.float32)))
+         * 40).to(dev, store or torch.bfloat16)
+    got = stem_tail_cuda(x, *weights, store)
+    want = stem_tail(x, *weights, store)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (shape[0], shape[1] // 2,
+                                       shape[2] // 2, 192)
+    assert got.dtype == want.dtype == (store or torch.bfloat16)
+    g, w = got.float(), want.float()
+    assert (g == w).float().mean() >= 0.999
+    if store is None:
+        assert ((g - w).abs() <= torch.clamp(2 * _bf16_ulp(w), min=0.26)
+                ).all()
+    else:
+        assert (_e5m2_steps(got, want) <= 1).all()
+
+
+def test_stem_tail_kernel_rejects_what_it_does_not_take(dev, rng):
+    weights = _stem_weights(rng, dev)
+    x = torch.ones(1, 8, 8, 64, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(TypeError):          # input not in the storage type
+        stem_tail_cuda(x, *weights, torch.float8_e5m2)
+    with pytest.raises(TypeError):
+        stem_tail_cuda(x.float(), *weights)
+    with pytest.raises(ValueError):
+        stem_tail_cuda(x[..., :32].contiguous(), *weights)
+    with pytest.raises(ValueError):         # too wide for shared memory
+        stem_tail_cuda(torch.ones(1, 8, 200, 64, device=dev,
+                                  dtype=torch.bfloat16), *weights)
+    before = stem_tail_cuda.launches
+    stem_tail_cuda(x, *weights)
+    stem_tail_cuda(x.cpu(), *(w.cpu() for w in weights))
+    assert stem_tail_cuda.launches == before + 1

@@ -26,6 +26,7 @@ from tpufcn.serve import detector as jax_det
 from torchfcn.convert.from_jax import load_jax_params
 from torchfcn.core.config import DetectorConfig, GridConfig
 from torchfcn.ops.grid_codec import decode_gridboxes
+from torchfcn.ops.image import resize_bilinear
 from torchfcn.serve.detector import Detector, select_candidates
 
 torch.set_num_threads(2)
@@ -133,11 +134,21 @@ def test_whole_slice_matches_jax(rng):
             np.float32([d[2] for d in w_img]), maxulp=1)
 
 
-def test_detector_devices_and_frame_size(monkeypatch):
+def test_detector_devices_and_frame_size(monkeypatch, rng):
+    """Frames of another size than the net's are resized, and their boxes
+    come back in the frames' coordinates: those of the same frames resized
+    to 448x448 by hand, scaled by 224/448 and truncated."""
     det = Detector("googlenet_detectnet_1cls", dtype=torch.float32,
                    device="cpu")
-    with pytest.raises(ValueError, match="resizing"):
-        det(np.zeros((1, 224, 224, 3), np.uint8))
+    with torch.no_grad():
+        det.model.cvg.bias.fill_(1.0)
+        det.model.bbox.bias.copy_(torch.tensor([-48.0, -48.0, 80.0, 80.0]))
+    frames = rng.integers(0, 256, (1, 224, 224, 3)).astype(np.uint8)
+    got = det(frames)
+    at_net = det(resize_bilinear(torch.from_numpy(frames), (448, 448)))
+    assert int(got.valid.sum()) > 0
+    assert torch.equal(got.valid, at_net.valid)
+    assert torch.equal(got.boxes, (at_net.boxes.float() * 0.5).int())
     with pytest.raises(ValueError, match="cuda"):
         Detector("googlenet_detectnet_1cls", device="meta")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -9,6 +9,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -16,7 +17,7 @@
 namespace torchfcn {
 
 // dtype codes passed by the wrappers
-enum DType : int { kFloat32 = 0, kBFloat16 = 1 };
+enum DType : int { kFloat32 = 0, kBFloat16 = 1, kFloat8E5M2 = 2 };
 
 __device__ __forceinline__ float load_f(const float* p) { return *p; }
 __device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
@@ -36,6 +37,43 @@ __device__ __forceinline__ float round_to<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// float -> e5m2 code, round to nearest even, overflow to inf: PyTorch's
+// c10::detail::fp8e5m2_from_fp32_value, so the kernels round exactly as
+// tensor.to(torch.float8_e5m2) does on either device
+__device__ __forceinline__ uint8_t e5m2_from_float(float f) {
+  uint32_t bits = __float_as_uint(f);
+  const uint32_t sign = bits & 0x80000000u;
+  bits ^= sign;
+  uint8_t code;
+  if (bits >= (143u << 23)) {            // |f| >= 65536, inf or NaN
+    code = bits > (255u << 23) ? 0x7F : 0x7C;
+  } else if (bits < (113u << 23)) {      // below 2^-14: e5m2 subnormal
+    const uint32_t denorm = 134u << 23;
+    bits = __float_as_uint(__uint_as_float(bits) + __uint_as_float(denorm));
+    code = static_cast<uint8_t>(bits - denorm);
+  } else {
+    const uint32_t mant_odd = (bits >> 21) & 1u;
+    bits += (static_cast<uint32_t>(15 - 127) << 23) + 0xFFFFFu;
+    bits += mant_odd;
+    code = static_cast<uint8_t>(bits >> 21);
+  }
+  return code | static_cast<uint8_t>(sign >> 24);
+}
+
+// e5m2 code -> float (exact: e5m2 is the top byte of an fp16)
+__device__ __forceinline__ float e5m2_to_float(uint8_t code) {
+  return __half2float(
+      __ushort_as_half(static_cast<unsigned short>(code) << 8));
+}
+
+// Caffe LRN (beta 0.75) factor (k + alpha/size * win)^-0.75, computed as
+// rsqrt(s) * rsqrt(sqrt(s)) like the reference
+__device__ __forceinline__ float lrn_factor(float win, float alpha_over_size,
+                                            float k) {
+  const float s = k + alpha_over_size * win;
+  return rsqrtf(s) * rsqrtf(sqrtf(s));
 }
 
 inline unsigned int blocks_for(long long total, int threads) {

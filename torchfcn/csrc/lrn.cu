@@ -40,9 +40,7 @@ __device__ __forceinline__ float lrn_at(const T* row, int c, int channels,
     const float v = load_f(row + j);
     win += round_to<T>(v * v);
   }
-  const float s = k + alpha_over_size * win;
-  const float inv = rsqrtf(s) * rsqrtf(sqrtf(s));
-  return round_to<T>(load_f(row + c) * inv);
+  return round_to<T>(load_f(row + c) * lrn_factor(win, alpha_over_size, k));
 }
 
 // one thread per element of the (pixels, channels) input

@@ -14,11 +14,19 @@ Structure kept from the reference deploy graph:
 conv1 is the plain stride-2 conv: the JAX package's space-to-depth form is a
 TPU lane-packing trick that ``tests/test_fast_conv.py`` pins identical to it.
 Compute runs in the parameters' dtype (bf16 for serving, float32 for parity).
+
+The fp8 serving preset (``store_dtype=torch.float8_e5m2`` with
+``store_stem2``, ``tpufcn/models/googlenet.py:161-200``) stores activations
+in e5m2 and computes in bf16: conv1's output, pool1's, the stem tail's (LRN1
+through pool2, one ``stem_tail`` kernel whose intermediates stay on the
+chip) and, with ``store_blocks``, the inception branches and concats.  Pools
+on e5m2 run through bf16 and stay e5m2 (the max is exact); convs read their
+e5m2 input widened to bf16.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn as nn
@@ -26,6 +34,7 @@ import torch.nn.functional as F
 
 from torchfcn.models.layers import (
     CaffeConv, LRN, LRNMaxPool, max_pool, nchw, nhwc)
+from torchfcn.ops.cuda.stem import stem_tail_cuda
 
 # Inception block widths: (1x1, 3x3_reduce, 3x3, 5x5_reduce, 5x5, pool_proj)
 INCEPTION_CFG = {
@@ -44,11 +53,14 @@ INCEPTION_CFG = {
 class Inception(nn.Module):
     """One inception module.  The three 1x1 convs that read the block input
     run as one conv over their concatenated kernels (one larger GEMM); the
-    parameters stay three Caffe convs, as in the JAX package."""
+    parameters stay three Caffe convs, as in the JAX package.  With
+    ``store_dtype`` the fused 1x1 output and the 3x3, 5x5 and pool branches
+    are stored in it, and so is the concat."""
 
     def __init__(self, cin: int, n1: int, n3r: int, n3: int, n5r: int,
-                 n5: int, npp: int):
+                 n5: int, npp: int, store_dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.store_dtype = store_dtype
         self.b1x1 = CaffeConv(cin, n1, 1)
         self.b3x3_reduce = CaffeConv(cin, n3r, 1)
         self.b3x3 = CaffeConv(n3r, n3, 3, pad=1)
@@ -58,14 +70,20 @@ class Inception(nn.Module):
         self.widths = (n1, n3r, n5r)
         self.out_channels = n1 + n3 + n5 + npp
 
+    def _store(self, x: torch.Tensor) -> torch.Tensor:
+        return x if self.store_dtype is None else x.to(self.store_dtype)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dtype = self.b1x1.weight.dtype
+        x = x.to(dtype)            # e5m2 input widens exactly
         convs = (self.b1x1, self.b3x3_reduce, self.b5x5_reduce)
-        y = F.relu(F.conv2d(x, torch.cat([c.weight for c in convs]),
-                            torch.cat([c.bias for c in convs])))
+        y = self._store(F.relu(F.conv2d(
+            x, torch.cat([c.weight for c in convs]),
+            torch.cat([c.bias for c in convs]))))
         b1, b3, b5 = torch.split(y, self.widths, dim=1)
-        b3 = F.relu(self.b3x3(b3))
-        b5 = F.relu(self.b5x5(b5))
-        bp = F.relu(self.pool_proj(max_pool(x, 3, 1, 1)))
+        b3 = self._store(F.relu(self.b3x3(b3.to(dtype))))
+        b5 = self._store(F.relu(self.b5x5(b5.to(dtype))))
+        bp = self._store(F.relu(self.pool_proj(max_pool(x, 3, 1, 1))))
         return torch.cat([b1, b3, b5, bp], dim=1)
 
 
@@ -76,16 +94,28 @@ class GoogLeNetDetectNet(nn.Module):
              "bboxes": (B, H/16, W/16, 4C) float32 corner offsets}, NHWC.
     """
 
-    def __init__(self, num_classes: int = 4):
+    def __init__(self, num_classes: int = 4,
+                 store_dtype: Optional[torch.dtype] = None,
+                 store_blocks: bool = False, store_stem2: bool = False):
         super().__init__()
+        if store_dtype not in (None, torch.float8_e5m2):
+            raise ValueError(f"store_dtype must be None or float8_e5m2 "
+                             f"(e4m3 saturates conv1), got {store_dtype}")
+        if store_dtype is not None and not store_stem2:
+            raise NotImplementedError(
+                "e5m2 storage without store_stem2 (LRN1 stored, conv2 and "
+                "LRN2 not) is used by no preset and is not ported")
+        # as in the JAX model, the store_* flags do nothing without a dtype
+        self.store_dtype = store_dtype
         self.conv1 = CaffeConv(3, 64, 7, stride=2, pad=3)
         self.norm1 = LRN()
         self.conv2_reduce = CaffeConv(64, 64, 1)
         self.conv2 = CaffeConv(64, 192, 3, pad=1)
         self.norm2_pool2 = LRNMaxPool()
         cin = 192
+        block_store = store_dtype if store_blocks else None
         for name, widths in INCEPTION_CFG.items():
-            block = Inception(cin, *widths)
+            block = Inception(cin, *widths, store_dtype=block_store)
             self.add_module(f"inception_{name}", block)
             cin = block.out_channels
         self.cvg = CaffeConv(cin, num_classes, 1)
@@ -100,20 +130,33 @@ class GoogLeNetDetectNet(nn.Module):
 
     def forward(self, frames: torch.Tensor) -> Dict[str, torch.Tensor]:
         dtype = self.conv1.weight.dtype
+        store = self.store_dtype
+        if store is not None and dtype != torch.bfloat16:
+            raise ValueError(f"e5m2 storage computes in bfloat16, the "
+                             f"parameters are {dtype}")
         # deploy_transform: Power shift -127 (deploy.prototxt:9-18)
         x = nchw((frames.to(torch.float32) - 127.0).to(dtype))
         x = F.relu(self.conv1(x))
-        x = max_pool(x, 3, 2)                              # pool1/3x3_s2
-        x = self.norm1(x)                                  # pool1/norm1
-        x = F.relu(self.conv2_reduce(x))
-        x = F.relu(self.conv2(x))
-        x = self.norm2_pool2(x)                # conv2/norm2 + pool2/3x3_s2
+        if store is None:
+            x = max_pool(x, 3, 2)                          # pool1/3x3_s2
+            x = self.norm1(x)                              # pool1/norm1
+            x = F.relu(self.conv2_reduce(x))
+            x = F.relu(self.conv2(x))
+            x = self.norm2_pool2(x)            # conv2/norm2 + pool2/3x3_s2
+        else:
+            x = max_pool(x.to(store), 3, 2)        # pool1, e5m2 in and out
+            # pool1/norm1 .. pool2/3x3_s2 in one kernel, e5m2 in and out
+            x = nchw(stem_tail_cuda(
+                nhwc(x).contiguous(), self.conv2_reduce.weight,
+                self.conv2_reduce.bias, self.conv2.weight, self.conv2.bias,
+                store))
         x = self.inception_3a(x)
         x = self.inception_3b(x)
         x = max_pool(x, 3, 2)                              # pool3/3x3_s2
         for blk in ("4a", "4b", "4c", "4d", "4e", "5a", "5b"):
             # no pool between 4e and 5a: the stride stays 16
             x = getattr(self, f"inception_{blk}")(x)
+        x = x.to(dtype)
         coverage = torch.sigmoid(self.cvg(x).float())
         bboxes = self.bbox(x).float()
         return {"coverage": nhwc(coverage).contiguous(),

@@ -50,7 +50,12 @@ def pooled_size(n: int, kernel: int, stride: int, pad: int = 0) -> int:
 def max_pool_caffe(x: torch.Tensor, kernel: int, stride: int,
                    pad: int = 0) -> torch.Tensor:
     """Ceil-mode max pooling over NHWC: the last window may hang past the
-    edge and maxes against -inf (Caffe's geometry is torch's ceil_mode)."""
+    edge and maxes against -inf (Caffe's geometry is torch's ceil_mode).
+    float8 input (which ``max_pool2d`` does not take) is pooled in bf16 and
+    returned in float8: the max of float8 values is exact."""
+    if x.dtype in (torch.float8_e5m2, torch.float8_e4m3fn):
+        return max_pool_caffe(x.to(torch.bfloat16), kernel, stride,
+                              pad).to(x.dtype)
     y = F.max_pool2d(x.permute(0, 3, 1, 2), kernel, stride, pad,
                      ceil_mode=True)
     return y.permute(0, 2, 3, 1)

@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
 All ``torchfcn/csrc/*.cu`` sources compile with ``nvcc`` for ``sm_90a``
-(Hopper) into one shared library with a plain C interface, loaded with
-``ctypes`` (a few seconds to build; no PyTorch headers).  The library is
-built at first use into ``torchfcn/_build`` (listed in ``.gitignore``), named
-by a hash of the sources and flags, so a changed source rebuilds.
+(Hopper), one ``nvcc`` process per source, all started together, and link
+into one shared library with a plain C interface, loaded with ``ctypes`` (a
+few seconds to build; no PyTorch headers).  The library is built at first
+use into ``torchfcn/_build`` (listed in ``.gitignore``), named by a hash of
+the sources and flags, so a changed source rebuilds.
 """
 
 from __future__ import annotations
@@ -23,13 +24,15 @@ PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (
+    *ARCH_FLAGS,
     "-std=c++17", "-O3",
     # a*b+c rounds twice, like the reference's separate multiply and add
     "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
+LINK_FLAGS = (*ARCH_FLAGS, "-shared")
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # exported C functions: argument types (pointers and the stream as c_void_p)
@@ -42,10 +45,13 @@ _SIGNATURES = {
     # x, y, batch, h, w, channels, ho, wo, size, alpha/size, k, dtype, stream
     "torchfcn_lrn_maxpool": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I,
                              _P),
+    # x, wr, br, w2, b2, y, batch, h, w, ho, wo, shared bytes, dtype, stream
+    "torchfcn_stem_tail": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                           _P),
 }
 
 # dtype codes of csrc/common.cuh
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e5m2: 2}
 
 
 def nvcc() -> str:
@@ -56,10 +62,16 @@ def nvcc() -> str:
     return os.path.join(cuda_home, "bin", "nvcc")
 
 
+def _check(cmd, returncode: int, output: str) -> None:
+    if returncode != 0:
+        raise RuntimeError(f"nvcc failed with code {returncode}:\n"
+                           f"{' '.join(map(str, cmd))}\n{output}")
+
+
 def build() -> Path:
     """Compile the kernels unless this exact build exists; returns the
     library's path, named by a hash of the sources and flags."""
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
     for src in sorted(CSRC_DIR.glob("*.cu*")):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
@@ -67,14 +79,31 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *map(str, sorted(CSRC_DIR.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)   # atomic: no process loads a half-written file
+    tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"
+    sources = sorted(CSRC_DIR.glob("*.cu"))
+    objects = [BUILD_DIR / f"{src.stem}-{tag}.o" for src in sources]
+    compiles = [[nvcc(), *COMPILE_FLAGS, "-c", "-o", str(obj), str(src)]
+                for src, obj in zip(sources, objects)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in compiles]
+    try:
+        for cmd, proc in zip(compiles, procs):
+            output, _ = proc.communicate()
+            _check(cmd, proc.returncode, output)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        link = [nvcc(), *LINK_FLAGS, "-o", str(tmp), *map(str, objects)]
+        linked = subprocess.run(link, capture_output=True, text=True)
+        _check(link, linked.returncode, linked.stdout + linked.stderr)
+        os.replace(tmp, out)   # atomic: no process loads a half-written file
+    finally:   # after a failure, stop the compiles still running
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+            if not proc.stdout.closed:
+                proc.communicate()
+        for obj in objects:
+            obj.unlink(missing_ok=True)
     return out
 
 

@@ -15,7 +15,7 @@ from torchfcn.ops.cuda import build
 def check_lrn_input(x: torch.Tensor, size: int, what: str) -> None:
     """Raise on what the LRN kernels do not take."""
     build.require_cuda(x, what)
-    if x.dtype not in build.DTYPE_CODES:
+    if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{what}: takes float32 or bfloat16, got {x.dtype}")
     if x.dim() == 0 or not x.is_contiguous():
         raise ValueError(f"{what}: input must be a contiguous channels-last "

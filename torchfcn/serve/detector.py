@@ -1,10 +1,12 @@
 """The serving pipeline of the port (``tpufcn/serve/detector.py``):
 
-    raw BGR frames -> Power(-127) shift -> forward -> grid decode -> top-K
-    candidate select -> groupRectangles NMS -> rescale to frame coords
+    raw BGR frames -> resize to the net's size (other sizes only) ->
+    Power(-127) shift -> forward -> grid decode -> top-K candidate select ->
+    groupRectangles NMS -> rescale to frame coords
 
-PyTorch runs it eagerly; the LRN and groupRectangles steps are hand-written
-CUDA kernels on a CUDA device and their plain versions on the CPU.
+PyTorch runs it eagerly; the stem (LRN, or the fused stem tail of the fp8
+serving preset) and groupRectangles steps are hand-written CUDA kernels on a
+CUDA device and their plain versions on the CPU.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from torchfcn.core.config import DetectorConfig
 from torchfcn.models import build as build_model, get_spec
 from torchfcn.ops.grid_codec import decode_gridboxes
 from torchfcn.ops.group_rects import vote_boxes_batched
+from torchfcn.ops.image import resize_bilinear
 
 # select_candidates clamps rounded coords to what the reference's packed sort
 # payload holds, so that results stay bit-identical to it
@@ -44,6 +47,23 @@ def select_candidates(cvg: torch.Tensor, boxes: torch.Tensor,
     r = torch.clamp(torch.round(boxes), _COORD_MIN, _COORD_MAX)
     cand = torch.gather(r, -2, order[..., None].expand(*order.shape, 4))
     return cand, key[..., :k] <= 0.0
+
+
+def preprocess(frames: torch.Tensor, mode: str,
+               net_hw: Tuple[int, int]) -> torch.Tensor:
+    """Family-specific preprocessing (``tpufcn/serve/detector.py:107-126``).
+
+    "shift127", the GoogLeNet DetectNet family: frames at the net's size go
+    to the model as they are (it applies the Power(-127) shift itself);
+    other sizes are resized, as float32, with JAX's antialiased bilinear
+    resize.  The other families' "demean" is not ported yet.
+    """
+    if mode != "shift127":
+        raise NotImplementedError(f"preprocessing {mode!r} is not ported; "
+                                  f"only 'shift127' is")
+    if tuple(frames.shape[-3:-1]) == tuple(net_hw):
+        return frames
+    return resize_bilinear(frames, net_hw)
 
 
 class DetectionResult(NamedTuple):
@@ -79,7 +99,7 @@ class Detector:
 
     Example:
         det = Detector("googlenet_detectnet", max_candidates=256)
-        result = det(frames_u8)   # (B, 448, 448, 3) BGR
+        result = det(frames_u8)   # (B, H, W, 3) BGR, boxes in frame coords
 
     ``device`` defaults to "cuda" and raises if CUDA is absent; pass
     "cpu" to run the plain versions of the kernels.  Weights are the seeded
@@ -102,6 +122,10 @@ class Detector:
             raise ValueError(f"Detector runs on 'cuda' or 'cpu', got "
                              f"{self.device}")
         self.spec = get_spec(model_name)
+        if self.spec.preprocessing != "shift127":
+            raise NotImplementedError(
+                f"{model_name}: preprocessing {self.spec.preprocessing!r} "
+                f"is not ported; only 'shift127' is")
         self.config = config or DetectorConfig(
             grid=self.spec.grid, model=model_name,
             max_candidates=max_candidates)
@@ -112,9 +136,10 @@ class Detector:
                               memory_format=torch.channels_last).eval()
 
     def _forward(self, frames: torch.Tensor):
-        """Model forward -> (coverage, bboxes) NHWC grids.  The model
-        applies the Power(-127) shift to the raw frames."""
-        out = self.model(frames)
+        """Preprocess + model forward -> (coverage, bboxes) NHWC grids.
+        The model applies the Power(-127) shift to the raw frames."""
+        net_hw = (self.grid.im_height, self.grid.im_width)
+        out = self.model(preprocess(frames, self.spec.preprocessing, net_hw))
         return out["coverage"], out["bboxes"]
 
     def _decode_nms(self, coverage: torch.Tensor, bboxes: torch.Tensor,
@@ -154,16 +179,11 @@ class Detector:
 
     @torch.inference_mode()
     def __call__(self, frames) -> DetectionResult:
-        """frames: (B, H, W, 3) BGR, uint8 or float in [0, 255], at the
-        net's input size (resizing other sizes is not ported yet)."""
+        """frames: (B, H, W, 3) BGR, uint8 or float in [0, 255], of any
+        size; boxes come back in the frames' coordinates."""
         frames = torch.as_tensor(frames, device=self.device)
-        net_hw = (self.grid.im_height, self.grid.im_width)
         if frames.dim() != 4 or frames.shape[-1] != 3:
             raise ValueError(f"frames must be (B, H, W, 3), got "
                              f"{tuple(frames.shape)}")
-        if tuple(frames.shape[1:3]) != net_hw:
-            raise ValueError(
-                f"frames are {tuple(frames.shape[1:3])}, the net takes "
-                f"{net_hw}: resizing frames is not ported yet")
         coverage, bboxes = self._forward(frames)
-        return self._decode_nms(coverage, bboxes, net_hw)
+        return self._decode_nms(coverage, bboxes, tuple(frames.shape[1:3]))
