@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import chain_rects
 from torchfcn.ops.caffe_layers import lrn_across_channels, max_pool_caffe
 from torchfcn.ops.cuda.group_rects import group_rectangles_cuda
 from torchfcn.ops.cuda.lrn import lrn_cuda
@@ -63,6 +64,33 @@ def test_group_rects_kernel_matches_plain(dev, rng, m, n):
     got = group_rectangles_cuda(rects.to(dev), valid.to(dev))
     torch.cuda.synchronize()
     _assert_grouped_equal(got, group_rectangles(rects, valid))
+
+
+def _one_component(rng, n):
+    """n boxes within 2 px of one box: every pair similar."""
+    rects = np.array([50., 60., 120., 130.], np.float32) + \
+        rng.integers(-2, 3, (2, n, 4)).astype(np.float32)
+    return torch.from_numpy(rects), torch.ones(2, n, dtype=torch.bool)
+
+
+def _all_invalid(rng, n):
+    rects, valid = _instances(rng, 3, n)
+    return rects, torch.zeros_like(valid)
+
+
+@pytest.mark.parametrize("case,n", [(chain_rects, 256),
+                                    (chain_rects, 1023),
+                                    (_one_component, 256),
+                                    (_one_component, 1024),
+                                    (_all_invalid, 256)])
+def test_group_rects_kernel_matches_plain_on_hard_inputs(dev, rng, case, n):
+    rects, valid = case(rng, n)
+    got = group_rectangles_cuda(rects.to(dev), valid.to(dev))
+    torch.cuda.synchronize()
+    want = group_rectangles(rects, valid)
+    _assert_grouped_equal(got, want)
+    if case is chain_rects:   # the whole chain is one cluster
+        assert want.weights.max() == n
 
 
 def test_group_rects_kernel_rounds_means_half_to_even(dev):
@@ -172,7 +200,13 @@ def _e5m2_steps(a, b):
 
 
 @pytest.mark.parametrize("store", [None, torch.float8_e5m2])
-@pytest.mark.parametrize("shape", [(8, 112, 112, 64), (1, 30, 30, 64)])
+# at B = 8 stripes of several pool rows: the serving shape, an odd H (14
+# stripes of 2) and a short last stripe (Ho = 35 in stripes of 3); at
+# B <= 3 one pool row per stripe, with pool, width and tile edges
+@pytest.mark.parametrize("shape", [(8, 112, 112, 64), (8, 57, 45, 64),
+                                   (8, 70, 33, 64), (1, 30, 30, 64),
+                                   (2, 57, 45, 64), (1, 3, 3, 64),
+                                   (1, 9, 128, 64), (3, 20, 17, 64)])
 def test_stem_tail_kernel_matches_plain(dev, rng, store, shape):
     """Against the plain version with TF32 off: at least 99.9 % of the
     entries bit-equal; the rest within max(0.26, 2 bf16 ulps) in bf16 (0.26

@@ -1,6 +1,8 @@
 """torchfcn's stem tail (``torchfcn/ops/stem.py``, the plain version of the
 ``stem_tail`` CUDA kernel) against tpufcn's Pallas stem kernel in interpret
-mode, and its e5m2 variant against the JAX serving model's chain.
+mode, and its e5m2 variant against the JAX serving model's chain; and the
+CUDA wrapper's host-side geometry (shared memory, stripe plan, the inputs it
+refuses), which the CPU reaches without the kernel.
 
 bf16: the tolerance of the JAX package's own kernel test
 (``tests/test_pallas_kernels.py:61-64``): atol 0.26, and more than 97 % of
@@ -16,6 +18,8 @@ import torch
 
 from tpufcn.ops.caffe_layers import lrn_across_channels, max_pool_caffe
 from tpufcn.ops.pallas.stem import googlenet_stem_pallas, stem_tail_pallas
+from torchfcn.ops.caffe_layers import pooled_size
+from torchfcn.ops.cuda import stem as stem_cuda
 from torchfcn.ops.cuda.stem import stem_tail_cuda
 from torchfcn.ops.stem import googlenet_stem, stem_tail
 
@@ -133,3 +137,83 @@ def test_stem_tail_cuda_runs_the_plain_version_on_cpu(rng):
         assert torch.equal(got.float(), stem_tail(x, *port[2:], store).float())
         assert got.shape == (1, 6, 5, 192)
     assert stem_tail_cuda.launches == before
+
+
+# ---- the stem kernel's host-side geometry (torchfcn/ops/cuda/stem.py) ----
+
+SHARED_BYTES_MAX = 232448      # dynamic shared memory a block may use (H100)
+NUM_SMS = 132                  # H100 SXM
+
+
+@pytest.mark.parametrize("w", [3, 45, 112, stem_cuda.MAX_WIDTH])
+def test_stem_kernel_shared_memory_fits(w):
+    """One block's shared memory fits the H100's 232,448 bytes at the
+    serving width and up to the widest width the wrapper takes."""
+    assert stem_cuda.shared_bytes(w) <= SHARED_BYTES_MAX
+    assert all(stem_cuda.shared_bytes(v) <= SHARED_BYTES_MAX
+               for v in range(3, stem_cuda.MAX_WIDTH + 1))
+
+
+def test_stem_kernel_shared_memory_at_the_serving_width():
+    """The byte counts the kernel's source note states (ring 43,776 +
+    taps 73,728 + reduce weights 8,192 + staging 44,800 + pooled row
+    21,504 + biases 1,024 at W = 112)."""
+    assert stem_cuda.shared_bytes(112) == 193024
+    assert stem_cuda.shared_bytes(128) == 208640
+
+
+@pytest.mark.parametrize("batch", [1, 2, 8, 64, 300])
+def test_stem_stripe_plan_covers_every_pool_row_once(batch):
+    for h in range(3, 121):
+        ho = pooled_size(h, 3, 2)
+        rows, stripes = stem_cuda.stripe_plan(batch, ho, NUM_SMS)
+        covered = [oh for s in range(stripes)
+                   for oh in range(s * rows, min((s + 1) * rows, ho))]
+        assert covered == list(range(ho)), (h, rows, stripes)
+        assert (stripes - 1) * rows < ho        # no stripe is empty
+        # one wave on the card where the batch allows it
+        assert batch * stripes <= max(NUM_SMS, batch)
+
+
+def test_stem_stripe_plan_at_the_serving_shape():
+    assert stem_cuda.stripe_plan(8, 56, NUM_SMS) == (4, 14)    # 112 blocks
+    assert stem_cuda.stripe_plan(1, 56, NUM_SMS) == (1, 56)
+    # the card checks' edge shapes at B = 8: odd H, short last stripe
+    assert stem_cuda.stripe_plan(8, 28, NUM_SMS) == (2, 14)
+    assert stem_cuda.stripe_plan(8, 35, NUM_SMS) == (3, 12)
+
+
+def _stem_args(h=8, w=8, c=64, dtype=torch.bfloat16):
+    x = torch.zeros(1, h, w, c, dtype=dtype)
+    return [x, torch.zeros(64, 64, 1, 1), torch.zeros(64),
+            torch.zeros(192, 64, 3, 3), torch.zeros(192)]
+
+
+@pytest.mark.parametrize("case,store,error", [
+    (dict(dtype=torch.float32), None, TypeError),          # not bf16
+    (dict(), torch.float8_e5m2, TypeError),                # not e5m2
+    (dict(), torch.float16, TypeError),                    # no such store
+    (dict(c=32), None, ValueError),                        # channels
+    (dict(h=2), None, ValueError),                         # 3x3 pool
+    (dict(w=2), None, ValueError),
+    (dict(w=stem_cuda.MAX_WIDTH + 1), None, ValueError),   # too wide
+])
+def test_stem_wrapper_rejects_what_the_kernel_does_not_take(case, store,
+                                                            error):
+    with pytest.raises(error):
+        stem_cuda.check_inputs(*_stem_args(**case), store)
+
+
+def test_stem_wrapper_rejects_bad_layouts_and_weights():
+    args = _stem_args(w=16)
+    with pytest.raises(ValueError):                        # not contiguous
+        stem_cuda.check_inputs(args[0][:, :, ::2], *args[1:], None)
+    with pytest.raises(ValueError):
+        stem_cuda.check_inputs(args[0], args[1], args[2],
+                               torch.zeros(192, 64, 1, 1), args[4], None)
+    assert stem_cuda.check_inputs(*args, None) == torch.bfloat16
+    args[0] = args[0].to(torch.float8_e5m2)
+    assert stem_cuda.check_inputs(*args, torch.float8_e5m2) \
+        == torch.float8_e5m2
+    assert stem_cuda.check_inputs(*_stem_args(w=stem_cuda.MAX_WIDTH),
+                                  None) == torch.bfloat16

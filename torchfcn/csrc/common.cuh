@@ -39,29 +39,6 @@ __device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// float -> e5m2 code, round to nearest even, overflow to inf: PyTorch's
-// c10::detail::fp8e5m2_from_fp32_value, so the kernels round exactly as
-// tensor.to(torch.float8_e5m2) does on either device
-__device__ __forceinline__ uint8_t e5m2_from_float(float f) {
-  uint32_t bits = __float_as_uint(f);
-  const uint32_t sign = bits & 0x80000000u;
-  bits ^= sign;
-  uint8_t code;
-  if (bits >= (143u << 23)) {            // |f| >= 65536, inf or NaN
-    code = bits > (255u << 23) ? 0x7F : 0x7C;
-  } else if (bits < (113u << 23)) {      // below 2^-14: e5m2 subnormal
-    const uint32_t denorm = 134u << 23;
-    bits = __float_as_uint(__uint_as_float(bits) + __uint_as_float(denorm));
-    code = static_cast<uint8_t>(bits - denorm);
-  } else {
-    const uint32_t mant_odd = (bits >> 21) & 1u;
-    bits += (static_cast<uint32_t>(15 - 127) << 23) + 0xFFFFFu;
-    bits += mant_odd;
-    code = static_cast<uint8_t>(bits >> 21);
-  }
-  return code | static_cast<uint8_t>(sign >> 24);
-}
-
 // e5m2 code -> float (exact: e5m2 is the top byte of an fp16)
 __device__ __forceinline__ float e5m2_to_float(uint8_t code) {
   return __half2float(

@@ -14,24 +14,31 @@
 //      n2 > max(3, n1) || n1 < 3.
 //
 // What bounds it on the H100: latency, not bytes or flops.  An instance is
-// 5 KB in and 6 KB out, and the work is a few N^2 predicate sweeps, so the
-// time is the chain of dependent block-wide steps.  The TPU kernel built
-// the N x N adjacency and closed it by repeated 0/1 squaring on the MXU; on
-// the GPU that would be N^2 storage and log2(N) matmuls per instance.  Here
-// the components come from min-label propagation instead: each thread takes
-// the smallest label among its similar neighbours and its label's own label
-// (pointer jumping), evaluating the predicate on the fly against the
-// candidates held in shared memory, until __syncthreads_or reports no
-// change.  Labels only fall and always name a member of the component, so
-// the fixed point is each component's smallest index.  Without the jumps a
-// label moves one edge per sweep, and neighbouring decoded grid cells form
-// long chains of similar boxes; with them a chain of length L takes about
-// log2(L) sweeps.  No N x N matrix is stored.
+// 5 KB in and 6 KB out, and the work is one pass of N (N - 1) / 2 predicate
+// tests (32 x 256 candidates: about 1 M tests of 12 float32 operations,
+// 0.2 us at 67 TFLOP/s), so the time is the few dependent block-wide steps
+// and the launch.  The TPU kernel built the N x N adjacency and closed it by
+// repeated 0/1 squaring on the MXU; on the GPU that would be N^2 storage and
+// log2(N) matmuls per instance.  Here the components come from a one-pass
+// union-find in shared memory: the pairs j < i are spread evenly over the
+// threads (threads 2k and 2k + 1 take rows k and N - 1 - k, the even and
+// the odd j, about (N - 1) / 2 pairs each), and
+// each similar pair unites its two roots, hooking the larger root under
+// the smaller with atomicCAS (retried when another thread hooked it first),
+// with path halving in find.  Every parent pointer points to a smaller
+// index of the same component, so after one barrier each component has a
+// single root, its smallest index: the label of the plain version, whatever
+// order the atomics took.  One predicate pass, whatever the components'
+// diameter (decoded grid cells form long chains of similar boxes); no
+// N x N matrix is stored.
 // Cluster sums and counts are integer atomics in shared memory (64-bit sums,
-// so any int-valued input is exact), and the mean is an exact integer
-// division rounded half to even.  delta = (eps * 0.5) * (min w + min h) and
-// dx = rint(w * eps) are computed in float32, as the JAX paths do, so
-// borderline comparisons break the same way.
+// so any int-valued input is exact), one per warp and cluster: the lanes
+// with one root (__match_any_sync) add as one.  The mean is an exact integer
+// division rounded half to even.  Suppression compares each kept cluster
+// with the kept ones only, from a list, not with all N slots.
+// delta = (eps * 0.5) * (min w + min h) and dx = rint(w * eps) are computed
+// in float32, as the JAX paths do, so borderline comparisons break the same
+// way.
 #include "common.cuh"
 
 namespace torchfcn {
@@ -51,114 +58,151 @@ __device__ __forceinline__ long long div_round_half_even(long long s,
   return q;
 }
 
+// root of x, halving the path on the way: each visited node is pointed to
+// its grandparent.  Pointers only ever move to a smaller index of the same
+// component, so a stale read still leads to the root.
+__device__ __forceinline__ int find(volatile int* parent, int x) {
+  for (;;) {
+    const int p = parent[x];
+    if (p == x) return x;
+    const int gp = parent[p];
+    if (gp != p) parent[x] = gp;
+    x = gp;
+  }
+}
+
+// join the components of a and b: the larger root is hooked under the
+// smaller, so a component's root stays its smallest index
+__device__ __forceinline__ void unite(volatile int* parent, int a, int b) {
+  for (;;) {
+    a = find(parent, a);
+    b = find(parent, b);
+    if (a == b) return;
+    const int lo = min(a, b), hi = max(a, b);
+    // hi may have been hooked by another thread since it was found a root
+    if (atomicCAS(const_cast<int*>(parent + hi), hi, lo) == hi) return;
+  }
+}
+
+// SimilarRects on (x, y, w, h) boxes, in float32 as the JAX paths compute it
+__device__ __forceinline__ bool similar(float4 a, float4 b, float half_eps) {
+  const float delta = half_eps * (fminf(a.z, b.z) + fminf(a.w, b.w));
+  return fabsf(a.x - b.x) <= delta && fabsf(a.y - b.y) <= delta &&
+         fabsf((a.x + a.z) - (b.x + b.z)) <= delta &&
+         fabsf((a.y + a.w) - (b.y + b.w)) <= delta;
+}
+
 __global__ void group_rects_kernel(const float* __restrict__ rects,
                                    const uint8_t* __restrict__ valid,
                                    float* __restrict__ out_rects,
                                    int* __restrict__ out_weights,
                                    uint8_t* __restrict__ out_valid, int n,
                                    int group_threshold, float eps) {
-  // shared memory: sums[4][n] (64-bit first, for alignment), box[4][n]
-  // (x, y, w, h; later the cluster means), label[n], count[n], ok[n]
-  extern __shared__ long long smem[];
+  // shared memory: sums[4][n] (64-bit first, for alignment), box[n]
+  // (x, y, w, h; later the cluster means), label[n] (union-find parents;
+  // later the kept clusters), count[n], ok[n]
+  extern __shared__ __align__(16) long long smem[];
   long long* sums = smem;
-  float* box = reinterpret_cast<float*>(sums + 4 * n);
-  int* label = reinterpret_cast<int*>(box + 4 * n);
+  float4* box = reinterpret_cast<float4*>(sums + 4 * n);
+  int* label = reinterpret_cast<int*>(box + n);
   int* count = label + n;
   uint8_t* ok = reinterpret_cast<uint8_t*>(count + n);
+  __shared__ int kept;
 
   const int i = threadIdx.x;
+  const int lane = i & 31;
   const bool active = i < n;
   const size_t base = static_cast<size_t>(blockIdx.x) * n;
 
-  float xi = 0.f, yi = 0.f, wi = 0.f, hi = 0.f;
   bool vi = false;
   if (active) {
-    const float* r = rects + (base + i) * 4;
-    xi = rintf(r[0]);
-    yi = rintf(r[1]);
-    wi = rintf(r[2]);
-    hi = rintf(r[3]);
+    const float4 r = reinterpret_cast<const float4*>(rects)[base + i];
+    box[i] = make_float4(rintf(r.x), rintf(r.y), rintf(r.z), rintf(r.w));
     vi = valid[base + i] != 0;
-    box[i] = xi;
-    box[n + i] = yi;
-    box[2 * n + i] = wi;
-    box[3 * n + i] = hi;
     ok[i] = vi;
     label[i] = i;
     count[i] = 0;
     for (int c = 0; c < 4; ++c) sums[c * n + i] = 0;
   }
+  if (i == 0) kept = 0;
   __syncthreads();
 
-  // min-label propagation over the SimilarRects graph, with pointer
-  // jumping: a thread also takes its label's own label, which lies in the
-  // same component, so labels travel twice as far each sweep
+  // one pass of union-find over the SimilarRects graph: threads 2k and
+  // 2k + 1 test the pairs (row, j < row) of rows k and n - 1 - k, the even
+  // and the odd j, four at a time so that their loads overlap
   const float half_eps = eps * 0.5f;
-  int lab = i;
-  for (;;) {
-    int best = lab;
-    if (active && vi) {
-      best = min(best, label[lab]);
-      for (int j = 0; j < n; ++j) {
-        const int lj = label[j];
-        if (lj >= best || !ok[j]) continue;
-        const float xj = box[j], yj = box[n + j];
-        const float wj = box[2 * n + j], hj = box[3 * n + j];
-        const float delta = half_eps * (fminf(wi, wj) + fminf(hi, hj));
-        if (fabsf(xi - xj) <= delta && fabsf(yi - yj) <= delta &&
-            fabsf((xi + wi) - (xj + wj)) <= delta &&
-            fabsf((yi + hi) - (yj + hj)) <= delta) {
-          best = lj;
-        }
+  volatile int* parent = label;
+  const int k = i >> 1;
+  for (int pass = 0; pass < 2; ++pass) {
+    const int row = pass == 0 ? k : n - 1 - k;
+    if (k >= (n + 1) / 2 || (pass == 1 && row == k) || !ok[row]) continue;
+    const float4 br = box[row];
+    for (int j0 = i & 1; j0 < row; j0 += 8) {
+      bool hit[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int j = min(j0 + 2 * u, row - 1);
+        hit[u] = j0 + 2 * u < row && ok[j] && similar(br, box[j], half_eps);
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        // most similar pairs of a dense cluster already share a parent
+        const int j = j0 + 2 * u;
+        if (hit[u] && parent[row] != parent[j]) unite(parent, row, j);
       }
     }
-    __syncthreads();  // every read of label[] in this sweep is done
-    const bool changed = best < lab;
-    if (changed) {
-      lab = best;
-      label[i] = best;
-    }
-    if (!__syncthreads_or(changed)) break;
   }
+  __syncthreads();  // every union is done: one root per component
+  const int lab = (active && vi) ? find(parent, i) : -1;
 
-  // cluster sums and counts at the root slot
-  if (active && vi) {
-    atomicAdd(&count[lab], 1);
-    const float v[4] = {xi, yi, wi, hi};
+  // cluster sums and counts at the root's slot: the lanes of a warp with
+  // one root add as one, their lowest lane summing their boxes in exact
+  // 64-bit integers
+  const unsigned group = __match_any_sync(0xFFFFFFFFu, lab);
+  if (lab >= 0 && __ffs(group) - 1 == lane) {
+    long long s[4] = {0, 0, 0, 0};
+    for (unsigned g = group; g; g &= g - 1) {
+      const float4 b = box[i - lane + __ffs(g) - 1];
+      s[0] += static_cast<long long>(b.x);
+      s[1] += static_cast<long long>(b.y);
+      s[2] += static_cast<long long>(b.z);
+      s[3] += static_cast<long long>(b.w);
+    }
+    atomicAdd(&count[lab], __popc(group));
     for (int c = 0; c < 4; ++c) {
       atomicAdd(reinterpret_cast<unsigned long long*>(&sums[c * n + lab]),
-                static_cast<unsigned long long>(static_cast<long long>(v[c])));
+                static_cast<unsigned long long>(s[c]));
     }
   }
   __syncthreads();
 
-  // means (0 for slots that are no cluster's root)
+  // means (0 for slots that are no cluster's root); the kept clusters'
+  // list replaces the parents, which no thread reads any more
   const int cnt = active ? count[i] : 0;
   float mean[4] = {0.f, 0.f, 0.f, 0.f};
   if (cnt > 0) {
-    for (int c = 0; c < 4; ++c) {
+    for (int c = 0; c < 4; ++c)
       mean[c] = static_cast<float>(div_round_half_even(sums[c * n + i], cnt));
-    }
   }
-  if (active) {
-    for (int c = 0; c < 4; ++c) box[c * n + i] = mean[c];
-  }
+  const bool survive = cnt > group_threshold;
+  if (active) box[i] = make_float4(mean[0], mean[1], mean[2], mean[3]);
+  if (survive) label[atomicAdd(&kept, 1)] = i;
   __syncthreads();
 
   if (!active) return;
-  // containment suppression among the kept clusters
-  const bool survive = cnt > group_threshold;
+  // containment suppression among the kept clusters, in any order: a
+  // cluster goes if any other kept cluster suppresses it
   bool suppressed = false;
   if (survive) {
-    for (int j = 0; j < n && !suppressed; ++j) {
+    for (int q = 0; q < kept && !suppressed; ++q) {
+      const int j = label[q];
+      if (j == i) continue;
       const int nj = count[j];
-      if (j == i || nj <= group_threshold) continue;
-      const float xj = box[j], yj = box[n + j];
-      const float wj = box[2 * n + j], hj = box[3 * n + j];
-      const float dx = rintf(wj * eps), dy = rintf(hj * eps);
-      const bool inside = mean[0] >= xj - dx && mean[1] >= yj - dy &&
-                          mean[0] + mean[2] <= xj + wj + dx &&
-                          mean[1] + mean[3] <= yj + hj + dy;
+      const float4 bj = box[j];
+      const float dx = rintf(bj.z * eps), dy = rintf(bj.w * eps);
+      const bool inside = mean[0] >= bj.x - dx && mean[1] >= bj.y - dy &&
+                          mean[0] + mean[2] <= bj.x + bj.z + dx &&
+                          mean[1] + mean[3] <= bj.y + bj.w + dy;
       suppressed = inside && (nj > max(3, cnt) || cnt < 3);
     }
   }

@@ -45,9 +45,10 @@ _SIGNATURES = {
     # x, y, batch, h, w, channels, ho, wo, size, alpha/size, k, dtype, stream
     "torchfcn_lrn_maxpool": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I,
                              _P),
-    # x, wr, br, w2, b2, y, batch, h, w, ho, wo, shared bytes, dtype, stream
+    # x, wr, br, w2, b2, y, batch, h, w, ho, wo, stripe rows, stripes,
+    # shared bytes, dtype, stream
     "torchfcn_stem_tail": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                           _P),
+                           _I, _I, _P),
 }
 
 # dtype codes of csrc/common.cuh

@@ -39,8 +39,10 @@ def group_rectangles_cuda(rects: torch.Tensor,
                         f"{rects.dtype} and {valid.dtype}")
     if valid.device != rects.device:
         raise ValueError("rects and valid must be on one device")
-    if not (rects.is_contiguous() and valid.is_contiguous()):
-        raise ValueError("rects and valid must be contiguous")
+    if not (rects.is_contiguous() and valid.is_contiguous()) \
+            or rects.data_ptr() % 16:
+        raise ValueError("rects and valid must be contiguous, rects 16-byte "
+                         "aligned")
     if not 0 < n <= MAX_CANDIDATES:
         raise ValueError(f"the kernel takes 1..{MAX_CANDIDATES} candidates "
                          f"per instance, got {n}")

@@ -2,12 +2,15 @@
 (``torchfcn_stem_tail``).
 
 Counterpart of ``tpufcn/ops/pallas/stem.py::stem_tail_pallas``.  The plain
-version is ``torchfcn.ops.stem.stem_tail``.
+version is ``torchfcn.ops.stem.stem_tail``.  The kernel's geometry is
+computed here and checked again by the kernel: ``shared_bytes`` (one
+block's shared memory) and ``stripe_plan`` (which pool rows each block
+walks).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -16,18 +19,35 @@ from torchfcn.ops.cuda import build
 from torchfcn.ops.stem import stem_tail
 
 CIN, CMID, COUT = 64, 64, 192
-XTILE = 8                      # conv2 output columns per thread tile
-SHARED_BYTES_MAX = 232448      # dynamic shared memory a block may use (H100)
+MTILE = 16                     # pixels of an mma m-tile
+MAX_WIDTH = 128                # 4 warps along M x 2 m-tiles x 16 pixels
+STAGE_STRIDE = 200             # staging row stride of a conv2 row (bf16)
 
 
 def shared_bytes(w: int) -> int:
-    """Dynamic shared memory of one block for input width ``w``: five
-    reduce-conv rows (bf16, one zero column each side, padded to whole
-    tiles), three conv2 rows (bf16) and the two biases (float32).  Must
-    match ``csrc/stem.cu``."""
-    tiles = -(-w // XTILE)
-    return (5 * (tiles * XTILE + 2) * CMID + 3 * w * COUT) * 2 \
-        + (CMID + COUT) * 4
+    """Dynamic shared memory of one block for input width ``w``, in bf16
+    elements times 2 plus the two float32 biases.  Must match
+    ``csrc/stem.cu::shared_bytes_for``: a ring of 3 reduce-conv rows (the
+    m-tiles' pixels and a zero column each side), three conv2 weight taps,
+    the reduce weights, the staging area (a conv2 row, or LRN1's output
+    over the m-tiles and its input row) and one pooled row."""
+    mtiles = -(-w // MTILE)
+    ring = 3 * (MTILE * mtiles + 2) * CMID
+    taps = 3 * COUT * CMID
+    stage = max(w * STAGE_STRIDE, (MTILE * mtiles + w) * CIN)
+    pooled = pooled_size(w, 3, 2) * COUT
+    return (ring + taps + CMID * CIN + stage + pooled) * 2 + (CMID + COUT) * 4
+
+
+def stripe_plan(batch: int, ho: int, sms: int) -> Tuple[int, int]:
+    """(pool rows per stripe, stripes per image): the grid is one block per
+    (stripe, image), each walking its stripe's pool rows down.  A stripe's
+    first pool row recomputes one conv2 row, so stripes are as long as
+    filling ``sms`` SMs allows: on the H100's 132 at B = 8, Ho = 56, 14
+    stripes of 4 rows (112 blocks); at B = 1, one row each."""
+    wanted = max(1, min(ho, sms // max(batch, 1)))
+    rows = -(-ho // wanted)
+    return rows, -(-ho // rows)
 
 
 def stem_tail_cuda(x: torch.Tensor, wr: torch.Tensor, br: torch.Tensor,
@@ -37,10 +57,41 @@ def stem_tail_cuda(x: torch.Tensor, wr: torch.Tensor, br: torch.Tensor,
     ceil pool on (B, H, W, 64) NHWC; returns (B, Ho, Wo, 192) in
     ``store_dtype`` (bf16 when None).  Weights in OIHW: ``wr`` (64, 64, 1,
     1), ``w2`` (192, 64, 3, 3).  On the card ``x`` must already be in the
-    storage type: bf16, or e5m2 for ``store_dtype=torch.float8_e5m2``."""
+    storage type: bf16, or e5m2 for ``store_dtype=torch.float8_e5m2``, with
+    3 <= W <= 128."""
     if x.device.type == "cpu":
         return stem_tail(x, wr, br, w2, b2, store_dtype)
     build.require_cuda(x, "stem_tail_cuda")
+    storage = check_inputs(x, wr, br, w2, b2, store_dtype)
+    b, h, w, _ = x.shape
+    smem = shared_bytes(w)
+    ho, wo = pooled_size(h, 3, 2), pooled_size(w, 3, 2)
+    y = torch.empty((b, ho, wo, COUT), dtype=storage, device=x.device)
+    if y.numel() == 0:
+        return y
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    rows, stripes = stripe_plan(b, ho, sms)
+    # the kernel's layouts, K contiguous: wr as [co][ci], w2 as
+    # [dy][dx][co][ci], bf16
+    wr_t = wr.reshape(CMID, CIN).to(torch.bfloat16).contiguous()
+    w2_t = w2.permute(2, 3, 0, 1).to(torch.bfloat16).contiguous()
+    br_f = br.to(torch.float32).contiguous()
+    b2_f = b2.to(torch.float32).contiguous()
+    build.launch("torchfcn_stem_tail", x.device, x.data_ptr(),
+                 wr_t.data_ptr(), br_f.data_ptr(), w2_t.data_ptr(),
+                 b2_f.data_ptr(), y.data_ptr(), b, h, w, ho, wo, rows,
+                 stripes, smem, build.DTYPE_CODES[storage])
+    stem_tail_cuda.launches += 1
+    return y
+
+
+stem_tail_cuda.launches = 0
+
+
+def check_inputs(x: torch.Tensor, wr: torch.Tensor, br: torch.Tensor,
+                 w2: torch.Tensor, b2: torch.Tensor,
+                 store_dtype: Optional[torch.dtype]) -> torch.dtype:
+    """Raise on what the kernel does not take; returns the storage type."""
     storage = store_dtype or torch.bfloat16
     if storage not in (torch.bfloat16, torch.float8_e5m2):
         raise TypeError(f"stem_tail_cuda: stores bfloat16 or float8_e5m2, "
@@ -48,9 +99,10 @@ def stem_tail_cuda(x: torch.Tensor, wr: torch.Tensor, br: torch.Tensor,
     if x.dtype != storage:
         raise TypeError(f"stem_tail_cuda: input must be {storage}, got "
                         f"{x.dtype}")
-    if x.dim() != 4 or x.shape[-1] != CIN or not x.is_contiguous():
-        raise ValueError(f"stem_tail_cuda: need contiguous (B, H, W, {CIN}) "
-                         f"NHWC, got {tuple(x.shape)}")
+    if x.dim() != 4 or x.shape[-1] != CIN or not x.is_contiguous() \
+            or x.data_ptr() % 16:
+        raise ValueError(f"stem_tail_cuda: need contiguous, 16-byte aligned "
+                         f"(B, H, W, {CIN}) NHWC, got {tuple(x.shape)}")
     if tuple(wr.shape) != (CMID, CIN, 1, 1) or tuple(br.shape) != (CMID,) \
             or tuple(w2.shape) != (COUT, CMID, 3, 3) \
             or tuple(b2.shape) != (COUT,):
@@ -58,30 +110,11 @@ def stem_tail_cuda(x: torch.Tensor, wr: torch.Tensor, br: torch.Tensor,
                          "(64,), (192, 64, 3, 3), (192,)")
     if any(t.device != x.device for t in (wr, br, w2, b2)):
         raise ValueError("stem_tail_cuda: weights and input on one device")
-    b, h, w, _ = x.shape
+    h, w = x.shape[1:3]
     if h < 3 or w < 3:
         raise ValueError(f"stem_tail_cuda: the 3x3 pool needs H, W >= 3, "
                          f"got {h}x{w}")
-    smem = shared_bytes(w)
-    if smem > SHARED_BYTES_MAX:
-        raise ValueError(f"stem_tail_cuda: width {w} needs {smem} bytes of "
-                         f"shared memory, more than {SHARED_BYTES_MAX}")
-
-    ho, wo = pooled_size(h, 3, 2), pooled_size(w, 3, 2)
-    y = torch.empty((b, ho, wo, COUT), dtype=storage, device=x.device)
-    if y.numel() == 0:
-        return y
-    # the kernel's layouts: wr as [ci][co], w2 as [dy][dx][ci][co], bf16
-    wr_t = wr.reshape(CMID, CIN).t().to(torch.bfloat16).contiguous()
-    w2_t = w2.permute(2, 3, 1, 0).to(torch.bfloat16).contiguous()
-    br_f = br.to(torch.float32).contiguous()
-    b2_f = b2.to(torch.float32).contiguous()
-    build.launch("torchfcn_stem_tail", x.device, x.data_ptr(),
-                 wr_t.data_ptr(), br_f.data_ptr(), w2_t.data_ptr(),
-                 b2_f.data_ptr(), y.data_ptr(), b, h, w, ho, wo, smem,
-                 build.DTYPE_CODES[storage])
-    stem_tail_cuda.launches += 1
-    return y
-
-
-stem_tail_cuda.launches = 0
+    if w > MAX_WIDTH:
+        raise ValueError(f"stem_tail_cuda: the kernel takes widths up to "
+                         f"{MAX_WIDTH}, got {w}")
+    return storage
