@@ -21,11 +21,13 @@ TF32 is off throughout, so the float32 plain versions are full float32.
    clustered boxes and on the hard cases: a chain of 256 boxes each similar
    only to its neighbours in a random index order, one component holding
    every box, no valid candidate, N = 300, 784 and 1024; LRN within 1 bf16
-   ulp in bf16 and rtol 1e-5 in float32; the stem tail at (8, 112, 112,
-   64) and at shapes with stripe and ceil-mode edges, at least 99.9 % of
-   the entries bit-equal, the rest within max(0.26, 2 bf16 ulps) in bf16
-   (0.26 is the JAX package's own stem-kernel tolerance) and within one
-   e5m2 step in e5m2: the kernel and cuDNN sum in other orders, and a
+   ulp in bf16 and rtol 1e-5 in float32, at the main path's shapes (which
+   must take the kernels' vector instance), at odd shapes at B = 8, and
+   with 3 channels and on a misaligned view (the scalar instance); the
+   stem tail at (8, 112, 112, 64) and at shapes with stripe and ceil-mode
+   edges, at least 99.9 % of the entries bit-equal, the rest within
+   max(0.26, 2 bf16 ulps) in bf16 (0.26 is the JAX package's own
+   stem-kernel tolerance) and within one e5m2 step in e5m2: the kernel and cuDNN sum in other orders, and a
    flipped rounding of an intermediate moves the conv sums downstream of it
    by a weight times its ulp.  Yardsticks, timed and used nowhere in the
    port: ``F.local_response_norm`` beside the LRN kernel, and the bf16
@@ -54,9 +56,10 @@ TF32 is off throughout, so the float32 plain versions are full float32.
 Then one JSON line of per-kernel numbers, each kernel's time beside its
 bound (``bound_ms``: the larger of the bytes it must move over 3.35 TB/s
 and its operations over the peak rate of their type, 989 TFLOP/s on the
-bf16 tensor cores or 67 TFLOP/s in float32, counted from this run's shapes
-and data) and, where one PyTorch call computes the same function, that
-call's time (``library_ms``), and last the result line
+bf16 tensor cores, 67 TFLOP/s in float32, or 4.18e12/s on the special-
+function unit, counted from this run's shapes and data) and, where one
+PyTorch call computes the same function, that call's time
+(``library_ms``), and last the result line
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits 1 and prints no
 result.  Weights are the seeded Caffe "xavier" init; the coverage and bbox
 head biases are set so that cells fire with boxes tall enough to survive
@@ -81,24 +84,33 @@ REPS, WARMUP = 25, 3
 # the stem tail's bf16 tolerance: the JAX package's own for its stem kernel
 # (tests/test_pallas_kernels.py:61), or 2 ulps where that is larger
 STEM_ATOL = 0.26
-# the H100 SXM's published peaks (bytes/s, operations/s)
+# the H100 SXM's published peaks (bytes/s, operations/s); the special-
+# function unit issues 16 operations per SM per clock, at the 1.98 GHz that
+# the float32 peak assumes, on 132 SMs
 HBM_BYTES_S = 3.35e12
 TENSOR_BF16_OPS_S = 989e12
 F32_OPS_S = 67e12
+SFU_OPS_S = 132 * 16 * 1.98e9
 # float32 operations counted per value: an LRN output (5 squares and
 # their roundings, 4 adds, scale, offset, rsqrt, sqrt, rsqrt, 2 multiplies)
 # and one SimilarRects pair test (2 min, add, multiply, 4 differences, 4
 # compares)
 LRN_OPS, PAIR_OPS = 17, 12
+# special-function operations per LRN value: rsqrt, the rsqrt of the IEEE
+# sqrt, rsqrt (csrc/common.cuh::lrn_factor)
+LRN_SFU_OPS = 3
 
 
-def bound(nbytes: float, tensor_ops: float = 0.0,
-          f32_ops: float = 0.0) -> dict:
+def bound(nbytes: float, tensor_ops: float = 0.0, f32_ops: float = 0.0,
+          sfu_ops: float = 0.0) -> dict:
     """The least time the card could take: the larger of the bytes over the
-    memory rate and each kind of operation over its peak."""
+    memory rate and each kind of operation over its peak.  The special-
+    function unit is one of those kinds: it issues a sixteenth of the
+    float32 rate, and the first LRN + pool kernel, which evaluated each LRN
+    value 2.25 times, needed twice its byte bound on that unit alone."""
     times = {"bytes": nbytes / HBM_BYTES_S,
              "operations": max(tensor_ops / TENSOR_BF16_OPS_S,
-                               f32_ops / F32_OPS_S)}
+                               f32_ops / F32_OPS_S, sfu_ops / SFU_OPS_S)}
     by = max(times, key=times.get)
     return dict(bound_ms=times[by] * 1e3, bound_by=by)
 
@@ -271,7 +283,7 @@ def phase_kernels(rng) -> dict:
     groupRectangles kernel's time on the 256-long chain."""
     import torch.nn.functional as F
     from torchfcn.ops.caffe_layers import lrn_across_channels, max_pool_caffe
-    from torchfcn.ops.cuda.lrn import lrn_cuda
+    from torchfcn.ops.cuda.lrn import lrn_cuda, vector_instance
     from torchfcn.ops.cuda.lrn_pool import lrn_maxpool_cuda
 
     dev = torch.device("cuda")
@@ -287,6 +299,10 @@ def phase_kernels(rng) -> dict:
         for dtype in (torch.float32, torch.bfloat16):
             x = (torch.from_numpy(rng.standard_normal(shape, np.float32))
                  * 60).to(dev, dtype)
+            if not vector_instance(dtype, shape[-1], x.data_ptr()):
+                raise AssertionError(f"{name} {shape} {dtype}: the main "
+                                     f"path's shape takes the scalar "
+                                     f"instance")
             got, want = kernel(x), plain(x)
             torch.cuda.synchronize()
             err = check_lrn_outputs(got, want, dtype, f"{name} {dtype}")
@@ -300,7 +316,8 @@ def phase_kernels(rng) -> dict:
         nbytes = (x.numel() + got.numel()) * x.element_size()
         rows[name] = dict(max_abs_err=err, ms=ms, call_ms=call_ms,
                           plain_ms=plain_ms, library_ms=None,
-                          **bound(nbytes, f32_ops=LRN_OPS * x.numel()))
+                          **bound(nbytes, f32_ops=LRN_OPS * x.numel(),
+                                  sfu_ops=LRN_SFU_OPS * x.numel()))
         if name == "lrn":
             # the one PyTorch call for the same function, on the same input
             rows[name]["library_ms"] = busy_ms(
@@ -310,8 +327,55 @@ def phase_kernels(rng) -> dict:
                 f"{rows[name]['library_ms']:.4f} ms")
         log("kernels", f"{name} bf16: bound {rows[name]['bound_ms']:.4f} ms "
             f"({rows[name]['bound_by']})")
+    check_lrn_edges(rng, dev, {name: (kernel, plain)
+                               for name, _, kernel, plain in cases})
     rows["stem_tail"] = check_stem_tail(rng, dev)
     return rows
+
+
+# the LRN kernels off the main path's shapes, in both instances: odd H and
+# W at B = 8 (lrn_maxpool at (8, 47, 45): a last stripe of 2 pool rows
+# after stripes of 3, a last tile of 4 pool columns after tiles of 6), 3
+# channels (scalar instance), and a view one element past an aligned
+# allocation (scalar instance)
+LRN_EDGE_SHAPES = {
+    "lrn": ((BATCH, 57, 45, 192), (2, 15, 13, 3)),
+    "lrn_maxpool": ((BATCH, 57, 45, 192), (BATCH, 70, 33, 64),
+                    (BATCH, 47, 45, 192), (2, 15, 13, 3)),
+}
+MISALIGNED_SHAPE = (2, 15, 13, 64)
+
+
+def check_lrn_edges(rng, dev, kernels) -> None:
+    """Each LRN kernel against its plain version at LRN_EDGE_SHAPES and on
+    a misaligned view, in float32 and bf16, within the main shapes'
+    bounds; the instance each takes is checked and printed."""
+    from torchfcn.ops.cuda.lrn import vector_instance
+    for name, (kernel, plain) in kernels.items():
+        for shape in LRN_EDGE_SHAPES[name] + (None,):
+            for dtype in (torch.float32, torch.bfloat16):
+                misaligned = shape is None
+                shp = MISALIGNED_SHAPE if misaligned else shape
+                data = (torch.from_numpy(rng.standard_normal(shp, np.float32))
+                        * 60).to(dev, dtype)
+                if misaligned:
+                    x = torch.empty(data.numel() + 1, dtype=dtype,
+                                    device=dev)[1:].view(shp)
+                    x.copy_(data)
+                else:
+                    x = data
+                vector = vector_instance(dtype, shp[-1], x.data_ptr())
+                if vector != (not misaligned and shp[-1] != 3):
+                    raise AssertionError(f"{name} {shp} {dtype}: took the "
+                                         f"{'vector' if vector else 'scalar'}"
+                                         f" instance")
+                got, want = kernel(x), plain(x)
+                torch.cuda.synchronize()
+                what = f"{name} {shp}{' misaligned' if misaligned else ''} " \
+                    f"{dtype}"
+                err = check_lrn_outputs(got, want, dtype, what)
+                log("kernels", f"{what}, {'vector' if vector else 'scalar'} "
+                    f"instance: max|err| {err:.3g}")
 
 
 def e5m2_steps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -405,12 +469,15 @@ def check_stem_tail(rng, dev) -> dict:
     row["chain_ms"] = busy_ms(chain)
     # bytes: e5m2 input and output, bf16 weights, float32 biases; operations:
     # the two convs' multiply-adds on the tensor cores, the LRNs in float32
+    # and on the special-function unit
     b, h, w, _ = xs.shape
     macs = b * h * w * (64 * 64 + 192 * 64 * 9)
+    lrn_values = b * h * w * (64 + 192)
     row.update(bound(xs.numel() + b * (h // 2) * (w // 2) * 192
                      + (64 * 64 + 192 * 576) * 2
                      + (64 + 192) * 4, tensor_ops=2 * macs,
-                     f32_ops=LRN_OPS * b * h * w * (64 + 192)))
+                     f32_ops=LRN_OPS * lrn_values,
+                     sfu_ops=LRN_SFU_OPS * lrn_values))
     log("kernels", f"stem_tail {tuple(xs.shape)} e5m2: kernel "
         f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bf16 path's "
         f"stem chain {row['chain_ms']:.4f} ms, bound {row['bound_ms']:.4f} "

@@ -140,23 +140,50 @@ def _assert_lrn_close(got, want):
         torch.testing.assert_close(got.cpu(), want.cpu(), rtol=1e-5, atol=0)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(2, 112, 112, 64), (3, 7, 5, 192),
-                                   (4, 9, 3), (10, 2)])
-def test_lrn_kernel_matches_plain(dev, rng, dtype, shape):
+MISALIGNED = "misaligned"
+
+
+def _lrn_input(rng, dev, dtype, shape):
+    """Seeded N(0, 60^2) values of ``shape``; for ``(MISALIGNED, *shape)``
+    a view one element past an aligned allocation, which takes the LRN
+    kernels' scalar instance."""
+    misaligned = shape[0] == MISALIGNED
+    shape = shape[1:] if misaligned else shape
     x = (torch.from_numpy(rng.standard_normal(shape, np.float32)) * 60
          ).to(dev, dtype)
+    if misaligned:
+        view = torch.empty(x.numel() + 1, dtype=dtype, device=dev)[1:]
+        x = view.view(shape).copy_(x)
+        assert x.data_ptr() % 16
+    return x
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+# the vector instance at the main path's shape and at odd shapes; the
+# scalar instance with 3 channels and on a misaligned view
+@pytest.mark.parametrize("shape", [(2, 112, 112, 64), (3, 7, 5, 192),
+                                   (4, 9, 3), (10, 2), (8, 57, 45, 192),
+                                   (2, 15, 13, 3),
+                                   (MISALIGNED, 2, 15, 13, 64)])
+def test_lrn_kernel_matches_plain(dev, rng, dtype, shape):
+    x = _lrn_input(rng, dev, dtype, shape)
     got = lrn_cuda(x)
     torch.cuda.synchronize()
     _assert_lrn_close(got, lrn_across_channels(x))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+# the main path's shape (bf16; float32 in the parity run), B = 8 with odd H
+# and W (at (8, 47, 45) a short last stripe and a short last column tile),
+# the scalar instance with 3 channels and on a misaligned view
 @pytest.mark.parametrize("shape", [(2, 112, 112, 192), (1, 15, 17, 64),
-                                   (2, 4, 3, 8)])
+                                   (2, 4, 3, 8), (8, 112, 112, 192),
+                                   (8, 57, 45, 192), (8, 70, 33, 64),
+                                   (8, 47, 45, 192),
+                                   (2, 15, 13, 3),
+                                   (MISALIGNED, 2, 15, 13, 64)])
 def test_lrn_maxpool_kernel_matches_plain(dev, rng, dtype, shape):
-    x = (torch.from_numpy(rng.standard_normal(shape, np.float32)) * 60
-         ).to(dev, dtype)
+    x = _lrn_input(rng, dev, dtype, shape)
     got = lrn_maxpool_cuda(x)
     torch.cuda.synchronize()
     want = max_pool_caffe(lrn_across_channels(x), 3, 2)

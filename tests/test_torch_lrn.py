@@ -1,12 +1,23 @@
 """torchfcn's plain LRN and Caffe ceil-mode pool against tpufcn.
 
 ``lrn_pallas`` has no interpret mode, so the LRN is held against
-``tpufcn.ops.caffe_layers.lrn_across_channels``.  LRN + pool is held against
-``lrn_maxpool_pallas(interpret=True)`` in bf16 (that kernel computes in bf16
-and asserts even H and W) and against the JAX ``lrn_across_channels`` +
-``max_pool_caffe`` chain in both dtypes on odd sizes.  Tolerances: float32
+``tpufcn.ops.caffe_layers.lrn_across_channels``, evaluated in a fresh
+interpreter with JAX's persistent compile cache off: the suite's workers
+share that cache (``tests/conftest.py``), and the reference must not depend
+on which test files ran before it in the same worker or on an executable
+another worker compiled; in float32 both sides are also held to a float64
+evaluation of the Caffe formula, so a failure names the side that moved.
+LRN + pool is held against ``lrn_maxpool_pallas(interpret=True)`` in bf16
+(that kernel computes in bf16 and asserts even H and W) and against the
+JAX ``lrn_across_channels`` + ``max_pool_caffe`` chain in both dtypes on
+odd sizes.  Tolerances: float32
 rtol 1e-5 (summation order); bf16 1 ulp (one rounding of the window sum or
 rsqrt may differ)."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import jax.numpy as jnp
@@ -42,12 +53,65 @@ def _assert_close(got: torch.Tensor, want, dtype: str):
         assert (np.abs(got - want) <= ulp).all()
 
 
+LRN_CASES = [(c, dtype) for c in (64, 192) for dtype in DTYPES]
+# tpufcn's LRN of each case's input, in float32, written to argv[2]
+_JAX_LRN = """
+import sys
+import numpy as np
+import jax.numpy as jnp
+from tpufcn.ops import caffe_layers as jcl
+out = {}
+for key, x in np.load(sys.argv[1]).items():
+    dtype = jnp.bfloat16 if key.endswith("bfloat16") else jnp.float32
+    y = jcl.lrn_across_channels(jnp.asarray(x, dtype), 5, 1e-4, 0.75)
+    out[key] = np.asarray(y.astype(jnp.float32))
+np.savez(sys.argv[2], **out)
+"""
+
+
+def _lrn_input(c):
+    return np.random.default_rng(0).standard_normal((2, 9, 12, c)) \
+        .astype(np.float32) * 60
+
+
+@pytest.fixture(scope="module")
+def jax_lrn(tmp_path_factory):
+    """tpufcn's LRN of every ``LRN_CASES`` input, from a fresh interpreter
+    with the persistent compile cache off."""
+    tmp = tmp_path_factory.mktemp("jax_lrn")
+    np.savez(tmp / "x.npz", **{f"{c}-{dtype}": _lrn_input(c)
+                               for c, dtype in LRN_CASES})
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               JAX_ENABLE_COMPILATION_CACHE="false")
+    subprocess.run([sys.executable, "-c", _JAX_LRN, str(tmp / "x.npz"),
+                    str(tmp / "y.npz")], check=True, env=env,
+                   cwd=Path(__file__).resolve().parents[1], timeout=300)
+    return dict(np.load(tmp / "y.npz"))
+
+
+def _caffe_lrn_f64(x: np.ndarray) -> np.ndarray:
+    """x / (1 + 1e-4 / 5 * window sum of x^2)^0.75 in float64."""
+    xd = x.astype(np.float64)
+    padded = np.pad(xd * xd, [(0, 0)] * (x.ndim - 1) + [(2, 2)])
+    c = x.shape[-1]
+    win = sum(padded[..., i:i + c] for i in range(5))
+    return xd * (1 + 2e-5 * win) ** -0.75
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("c", [64, 192])
-def test_lrn_matches_jax(rng, dtype, c):
-    x, xj = _inputs(rng, (2, 9, 12, c), dtype)
-    _assert_close(cl.lrn_across_channels(x),
-                  jcl.lrn_across_channels(xj, 5, 1e-4, 0.75), dtype)
+def test_lrn_matches_jax(rng, jax_lrn, dtype, c):
+    x, _ = _inputs(rng, (2, 9, 12, c), dtype)
+    assert np.array_equal(x.float().numpy(),
+                          torch.from_numpy(_lrn_input(c)).to(x.dtype)
+                          .float().numpy())
+    got, want = cl.lrn_across_channels(x), jax_lrn[f"{c}-{dtype}"]
+    if dtype == "float32":   # each side against float64: which one moved
+        exact = _caffe_lrn_f64(_lrn_input(c))
+        for side, y in (("torchfcn", got.numpy()), ("tpufcn", want)):
+            np.testing.assert_allclose(y, exact, rtol=1e-6, atol=0,
+                                       err_msg=f"{side} against float64")
+    _assert_close(got, want, dtype)
 
 
 @pytest.mark.parametrize("c", [64, 192])

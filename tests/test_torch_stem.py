@@ -20,6 +20,7 @@ from tpufcn.ops.caffe_layers import lrn_across_channels, max_pool_caffe
 from tpufcn.ops.pallas.stem import googlenet_stem_pallas, stem_tail_pallas
 from torchfcn.ops.caffe_layers import pooled_size
 from torchfcn.ops.cuda import stem as stem_cuda
+from torchfcn.ops.cuda.geometry import SHARED_BYTES_MAX
 from torchfcn.ops.cuda.stem import stem_tail_cuda
 from torchfcn.ops.stem import googlenet_stem, stem_tail
 
@@ -141,7 +142,6 @@ def test_stem_tail_cuda_runs_the_plain_version_on_cpu(rng):
 
 # ---- the stem kernel's host-side geometry (torchfcn/ops/cuda/stem.py) ----
 
-SHARED_BYTES_MAX = 232448      # dynamic shared memory a block may use (H100)
 NUM_SMS = 132                  # H100 SXM
 
 

@@ -79,17 +79,6 @@ constexpr int kTapBuffers = 3;            // taps in flight: 2 ahead
 constexpr float kAlphaOverSize = 1e-4f / 5.f;
 constexpr float kLrnK = 1.f;
 
-__device__ __forceinline__ float bf16_lo(uint32_t u) {
-  return __uint_as_float(u << 16);
-}
-__device__ __forceinline__ float bf16_hi(uint32_t u) {
-  return __uint_as_float(u & 0xFFFF0000u);
-}
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 // 8 float values (bf16-exact) packed as bf16
 __device__ __forceinline__ uint4 pack8(const float (&f)[8]) {
   uint4 u;
@@ -183,10 +172,6 @@ struct Store<uint8_t> {
 // XOR-swizzled by the row index
 __device__ __forceinline__ int swz(int row, int c) {
   return row * kCin + ((((c >> 3) ^ row) & 7) << 3) + (c & 7);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],

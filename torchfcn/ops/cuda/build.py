@@ -40,11 +40,13 @@ _SIGNATURES = {
     # rects, valid, out_rects, out_weights, out_valid, m, n, threshold, eps,
     # stream
     "torchfcn_group_rects": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
-    # x, y, pixels, channels, size, alpha/size, k, dtype, stream
-    "torchfcn_lrn": (_P, _P, _L, _I, _I, _F, _F, _I, _P),
-    # x, y, batch, h, w, channels, ho, wo, size, alpha/size, k, dtype, stream
+    # x, y, pixels, channels, size, alpha/size, k, dtype, vector, tile
+    # pixels, blocks, shared bytes, stream
+    "torchfcn_lrn": (_P, _P, _L, _I, _I, _F, _F, _I, _I, _I, _I, _I, _P),
+    # x, y, batch, h, w, channels, ho, wo, size, alpha/size, k, dtype,
+    # vector, stripe rows, stripes, column tile, tiles, shared bytes, stream
     "torchfcn_lrn_maxpool": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I,
-                             _P),
+                             _I, _I, _I, _I, _I, _I, _P),
     # x, wr, br, w2, b2, y, batch, h, w, ho, wo, stripe rows, stripes,
     # shared bytes, dtype, stream
     "torchfcn_stem_tail": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,

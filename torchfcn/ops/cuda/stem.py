@@ -4,18 +4,19 @@
 Counterpart of ``tpufcn/ops/pallas/stem.py::stem_tail_pallas``.  The plain
 version is ``torchfcn.ops.stem.stem_tail``.  The kernel's geometry is
 computed here and checked again by the kernel: ``shared_bytes`` (one
-block's shared memory) and ``stripe_plan`` (which pool rows each block
-walks).
+block's shared memory) and ``geometry.stripe_plan`` (which pool rows each
+block walks).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional
 
 import torch
 
 from torchfcn.ops.caffe_layers import pooled_size
 from torchfcn.ops.cuda import build
+from torchfcn.ops.cuda.geometry import sm_count, stripe_plan
 from torchfcn.ops.stem import stem_tail
 
 CIN, CMID, COUT = 64, 64, 192
@@ -39,17 +40,6 @@ def shared_bytes(w: int) -> int:
     return (ring + taps + CMID * CIN + stage + pooled) * 2 + (CMID + COUT) * 4
 
 
-def stripe_plan(batch: int, ho: int, sms: int) -> Tuple[int, int]:
-    """(pool rows per stripe, stripes per image): the grid is one block per
-    (stripe, image), each walking its stripe's pool rows down.  A stripe's
-    first pool row recomputes one conv2 row, so stripes are as long as
-    filling ``sms`` SMs allows: on the H100's 132 at B = 8, Ho = 56, 14
-    stripes of 4 rows (112 blocks); at B = 1, one row each."""
-    wanted = max(1, min(ho, sms // max(batch, 1)))
-    rows = -(-ho // wanted)
-    return rows, -(-ho // rows)
-
-
 def stem_tail_cuda(x: torch.Tensor, wr: torch.Tensor, br: torch.Tensor,
                    w2: torch.Tensor, b2: torch.Tensor,
                    store_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
@@ -69,8 +59,7 @@ def stem_tail_cuda(x: torch.Tensor, wr: torch.Tensor, br: torch.Tensor,
     y = torch.empty((b, ho, wo, COUT), dtype=storage, device=x.device)
     if y.numel() == 0:
         return y
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    rows, stripes = stripe_plan(b, ho, sms)
+    rows, stripes = stripe_plan(b, ho, sm_count(x.device))
     # the kernel's layouts, K contiguous: wr as [co][ci], w2 as
     # [dy][dx][co][ci], bf16
     wr_t = wr.reshape(CMID, CIN).to(torch.bfloat16).contiguous()
