@@ -51,9 +51,30 @@ TF32 is off throughout, so the float32 plain versions are full float32.
    448x448 frames.  The stem-tail and groupRectangles kernels must have
    launched in that run, the LRN kernels not; the detections must equal
    decode + NMS of the same heads on the CPU.  Prints detections, frames/s
-   and latency per batch.
+   and latency per batch;
+7. families: the VGG, FCN and ResNet-FPN families.  First, once per
+   family, the float32 forward on the card against the CPU (1 frame of
+   vgg_pyramid_detectnet at 448x448, 2 of the others), every head within
+   1e-4 of its largest magnitude.  Then each detection configuration in
+   bf16 on 8 seeded frames of its net's size with K = 256
+   (vgg_pyramid_detectnet and its e5m2 preset at 448x448, fcn8s_bbox and
+   its preset at 288x288, vgg_detectnet_train at 224x224, resnet_fpn_
+   detectnet bf16 and with e5m2 block storage at 448x448), and fcn8s_bbox
+   again at its default capacity, all 36 x 36 = 1296 cells per class: each
+   run must launch the groupRectangles kernel and equal decode + NMS of
+   the same heads on the CPU; prints detections, frames/s, host-clock
+   latency and device-busy time per batch.  The kernel is then checked
+   and timed on that default-capacity run's candidates (80 instances of
+   N = 1296; its numbers join the JSON line as ``n1296_*``) and checked on
+   N = 4096 (a random-order chain, one component).  Last the segment
+   surface (demean -> forward -> argmax) of fcn32s_seg and its preset on 8
+   frames of 224x224: on 2 frames, at least 98 % of the labels equal to
+   the CPU's, and every other pixel a near-tie on the CPU (top two logits
+   within 5 % of the logits' scale in bf16, 30 % in the e5m2 preset, whose
+   flipped roundings spread).
 
-Then one JSON line of per-kernel numbers, each kernel's time beside its
+Then one JSON line of the families' numbers, one JSON line of per-kernel
+numbers, each kernel's time beside its
 bound (``bound_ms``: the larger of the bytes it must move over 3.35 TB/s
 and its operations over the peak rate of their type, 989 TFLOP/s on the
 bf16 tensor cores, 67 TFLOP/s in float32, or 4.18e12/s on the special-
@@ -68,6 +89,7 @@ the NMS height filter.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -536,8 +558,9 @@ def run_counted(det, frames, counters, required, what: str):
     missing = [name for name in required if launches[name] == 0]
     if missing:
         raise AssertionError(f"{what} launched no {missing} kernel")
-    k = min(K, det.grid.grid_h * det.grid.grid_w)
-    if res.boxes.shape != (len(frames), det.grid.num_classes, k, 4) \
+    k = min(det.config.candidate_capacity, det.grid.grid_h * det.grid.grid_w)
+    classes = det.grid.num_classes - (det.spec.background_channel is not None)
+    if res.boxes.shape != (len(frames), classes, k, 4) \
             or res.boxes.dtype != torch.int32:
         raise AssertionError(f"{what}: boxes {tuple(res.boxes.shape)} "
                              f"{res.boxes.dtype}")
@@ -554,7 +577,7 @@ def check_against_cpu(det, frames, res, what: str):
     from torchfcn.serve.detector import Detector
     with torch.inference_mode():
         heads = det._forward(torch.as_tensor(frames, device="cuda"))
-        cpu = Detector(det.config.model, max_candidates=K,
+        cpu = Detector(det.config.model, config=det.config,
                        dtype=torch.bfloat16, rng_seed=SEED, device="cpu")
         want = cpu._decode_nms(*(h.cpu() for h in heads), frames.shape[1:3])
     assert_same_result(res, want, f"{what} vs decode+NMS on the cpu")
@@ -648,6 +671,178 @@ def phase_serving(rng, counters, card: str) -> dict:
     return launches
 
 
+# the families phase: (model, model_kwargs) at B = 8 on frames of the
+# model's net size, K = 256; fcn8s_bbox again at its default capacity, all
+# 36 x 36 = 1296 cells per class
+FAMILY_CONFIGS = (
+    ("vgg_pyramid_detectnet", None), ("vgg_pyramid_detectnet_serving", None),
+    ("fcn8s_bbox", None), ("fcn8s_bbox_serving", None),
+    ("vgg_detectnet_train", None),
+    ("resnet_fpn_detectnet", None),
+    ("resnet_fpn_detectnet", {"store_dtype": torch.float8_e5m2}),
+)
+SEG_CONFIGS = ("fcn32s_seg", "fcn32s_seg_serving")
+# float32 card against CPU, once per family, on 1-2 frames: each head
+# within PARITY_RTOL of its largest magnitude (float32 convolutions in
+# other orders and algorithms; the GoogLeNet parity phase measures 4e-6)
+PARITY_FAMILIES = (("vgg_pyramid_detectnet", 1), ("vgg_detectnet_train", 2),
+                   ("fcn8s_bbox", 2), ("resnet_fpn_detectnet", 2),
+                   ("fcn32s_seg", 2))
+PARITY_RTOL = 1e-4
+# bf16 segment labels: at least SEG_AGREE of the pixels of 2 frames must
+# get the CPU's label, and every pixel that does not must be a near-tie on
+# the CPU: its top two logits closer than SEG_GAP of the logits' largest
+# magnitude.  bf16 convolutions round in other places on the two devices,
+# and in the e5m2 preset a flipped rounding moves a stored value by a
+# quarter and spreads through the layers after it (as against tpufcn,
+# tests/test_torch_family_serving.py)
+SEG_AGREE = 0.98
+SEG_GAP = {"fcn32s_seg": 0.05, "fcn32s_seg_serving": 0.3}
+
+def family_parity(name: str, n: int, rng) -> str:
+    """The float32 forward of ``name`` on ``n`` frames, card against CPU,
+    same seeded weights, TF32 off; raises beyond PARITY_RTOL."""
+    from torchfcn.models import get_spec
+    from torchfcn.serve.detector import serving_model
+    from torchfcn.ops.image import demean_bgr
+    spec = get_spec(name)
+    net = spec.grid.im_height
+    frames = torch.from_numpy(rng.integers(0, 256, (n, net, net, 3),
+                                           dtype=np.uint8))
+    x = frames if spec.preprocessing == "shift127" else demean_bgr(frames)
+    outs = []
+    for dev in ("cuda", "cpu"):
+        model = serving_model(name, torch.float32, SEED, None, dev)
+        with torch.inference_mode():
+            outs.append({k: v.cpu() for k, v in model(x.to(dev)).items()})
+    msg = []
+    for key, want in outs[1].items():
+        diff = float((outs[0][key] - want).abs().max())
+        scale = float(want.abs().max())
+        if not diff <= PARITY_RTOL * scale:
+            raise AssertionError(f"{name} f32 {key}: card and cpu differ by "
+                                 f"{diff} > {PARITY_RTOL} x {scale}")
+        msg.append(f"{key} {diff:.3g} of {scale:.3g}")
+    return f"{name} f32 card vs cpu on {n} frame(s), max|diff|: " + \
+        ", ".join(msg)
+
+
+def run_family(det, frames, counters, card: str, what: str) -> dict:
+    """One counted run of a detection configuration that must launch the
+    groupRectangles kernel, its detections against decode + NMS on the CPU,
+    its rate and device time; returns its numbers and the run's heads."""
+    res, launches = run_counted(det, frames, counters, ("group_rects",),
+                                what)
+    heads = check_against_cpu(det, frames, res, what)
+    latency = batch_latency(det, frames)
+    busy = busy_ms(lambda: det(frames))
+    k = res.boxes.shape[2]
+    row = dict(config=what, batch=len(frames), size=frames.shape[1], k=k,
+               detections=int(res.valid.sum()), frames_s=len(frames) / latency,
+               ms_batch=latency * 1e3, busy_ms=busy, launches=launches)
+    log("families", f"{what} B={len(frames)} {frames.shape[1]}x"
+        f"{frames.shape[2]} K={k}: {row['detections']} detections, equal "
+        f"to decode+NMS on the cpu; launches {launches}; "
+        f"{row['frames_s']:.1f} frames/s, {row['ms_batch']:.3f} ms per "
+        f"batch (median of {REPS}, host clock), device busy {busy:.3f} ms "
+        f"per batch, on {card}")
+    return row, heads
+
+
+def run_segment(name: str, counters, card: str, rng) -> dict:
+    """The segment surface of ``name`` on 8 frames of its size: labels
+    against the CPU's on 2 frames away from near-ties; rate and device
+    time."""
+    from torchfcn.models import get_spec
+    from torchfcn.serve.segment import Segmenter
+    net = get_spec(name).grid.im_height
+    frames = rng.integers(0, 256, (BATCH, net, net, 3), dtype=np.uint8)
+    seg = Segmenter(name, dtype=torch.bfloat16, rng_seed=SEED, device="cuda")
+    for fn in counters.values():
+        fn.launches = 0
+    labels = seg(frames)
+    torch.cuda.synchronize()
+    launches = {n: fn.launches for n, fn in counters.items()}
+    if labels.shape != (BATCH, net, net) or labels.dtype != torch.int64:
+        raise AssertionError(f"{name}: labels {tuple(labels.shape)} "
+                             f"{labels.dtype}")
+    cpu = Segmenter(name, dtype=torch.bfloat16, rng_seed=SEED, device="cpu")
+    with torch.inference_mode():
+        logits = cpu.logits(torch.from_numpy(frames[:2]))
+    top2 = logits.topk(2, dim=-1).values
+    gap = (top2[..., 0] - top2[..., 1]) / logits.abs().max()
+    agree = labels[:2].cpu() == logits.argmax(-1)
+    worst = float(gap[~agree].max()) if not bool(agree.all()) else 0.0
+    share = float(agree.float().mean())
+    if share < SEG_AGREE or worst >= SEG_GAP[name]:
+        raise AssertionError(
+            f"{name}: labels equal to the cpu's on {share:.4f} of the "
+            f"pixels; a pixel that differs has a top-two gap of {worst:.3f} "
+            f"of the logits' scale (limits {SEG_AGREE}, {SEG_GAP[name]})")
+    latency = batch_latency(seg, frames)
+    busy = busy_ms(lambda: seg(frames))
+    row = dict(config=name, batch=BATCH, size=net, frames_s=BATCH / latency,
+               ms_batch=latency * 1e3, busy_ms=busy, launches=launches)
+    log("families", f"{name} segment surface B={BATCH} {net}x{net}: labels "
+        f"equal to the cpu's on {share * 100:.2f} % of the pixels, the "
+        f"others near-ties (top-two gap at most {worst:.3f} of the logits' "
+        f"scale, limit {SEG_GAP[name]}); "
+        f"{row['frames_s']:.1f} frames/s, {row['ms_batch']:.3f} ms per "
+        f"batch (median of {REPS}, host clock), device busy {busy:.3f} ms "
+        f"per batch, on {card}")
+    return row
+
+
+def phase_families(rng, counters, card: str):
+    """The VGG, FCN and ResNet-FPN families; returns their rows and the
+    groupRectangles kernel's numbers on fcn8s_bbox's default-capacity
+    candidates (N = 1296) for the JSON line."""
+    from torchfcn.models import get_spec
+    from torchfcn.ops.grid_codec import decode_gridboxes
+    from torchfcn.serve.detector import Detector, select_candidates
+    from torchfcn.serve.profile import bias_heads
+    for name, n in PARITY_FAMILIES:
+        log("families", family_parity(name, n, rng))
+    rows = []
+    for name, kwargs in FAMILY_CONFIGS:
+        net = get_spec(name).grid.im_height
+        frames = rng.integers(0, 256, (BATCH, net, net, 3), dtype=np.uint8)
+        capacities = (K, None) if name == "fcn8s_bbox" else (K,)
+        for k in capacities:
+            det = Detector(name, max_candidates=k, dtype=torch.bfloat16,
+                           rng_seed=SEED, model_kwargs=kwargs, device="cuda")
+            bias_heads(det)
+            what = name + ("" if kwargs is None else
+                           " store_dtype=e5m2") + \
+                ("" if k else " default capacity")
+            row, heads = run_family(det, frames, counters, card, what)
+            rows.append(row)
+            if k is None:
+                cov, bboxes = heads
+    # the kernel at N = 1296 on the candidates of fcn8s_bbox's default-
+    # capacity run (its 10 foreground classes), then at N = 4096
+    grid = dataclasses.replace(get_spec("fcn8s_bbox").grid, num_classes=10)
+    n = grid.grid_h * grid.grid_w
+    with torch.inference_mode():
+        boxes, cvg, valid = decode_gridboxes(cov[..., 1:], bboxes[..., 4:],
+                                             grid, 0.5)
+        cand, cand_valid = select_candidates(cvg, boxes, valid, n)
+    big = check_group_rects(cand.reshape(-1, n, 4).contiguous(),
+                            cand_valid.reshape(-1, n).contiguous(),
+                            "fcn8s_bbox's default-capacity candidates")
+    rects, valid = chain_rects(rng, 4096)
+    check_group_rects(rects.cuda(), valid.cuda(),
+                      "a chain of 4096 boxes in random order")
+    one = np.array([50., 60., 120., 130.], np.float32) + \
+        rng.integers(-2, 3, (2, 4096, 4)).astype(np.float32)
+    check_group_rects(torch.from_numpy(one).cuda(),
+                      torch.ones(2, 4096, dtype=torch.bool, device="cuda"),
+                      "N = 4096, one component", timed=False)
+    rows += [run_segment(name, counters, card, rng) for name in SEG_CONFIGS]
+    return rows, {f"n{n}_{key}": value for key, value in big.items()
+                  if key != "max_abs_err"}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -684,6 +879,8 @@ def main() -> int:
     rows["group_rects"].update(row, library_ms=None)
     counters["stem_tail"] = stem_tail_cuda
     launches["stem_tail"] = phase_serving(rng, counters, card)["stem_tail"]
+    families, big = phase_families(rng, counters, card)
+    rows["group_rects"].update(big)
 
     meta = {
         "group_rects": ("torchfcn/csrc/group_rects.cu",
@@ -697,6 +894,7 @@ def main() -> int:
     kernels = [dict(name=name, route="cuda", source=meta[name][0],
                     replaces=meta[name][1], launches=launches[name],
                     **rows[name]) for name in counters]
+    print(json.dumps({"card": card, "families": families}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -57,8 +57,12 @@ def _assert_grouped_equal(got, want):
         assert torch.equal(a, b), f"{field}: {int((a != b).sum())} differ"
 
 
+# up to 1024 one candidate per thread; beyond, several per thread: the
+# default capacity of fcn8s_bbox (36 x 36 cells at 288x288) and the most
+# the kernel takes
 @pytest.mark.parametrize("m,n", [(1, 32), (4, 100), (32, 256), (5, 784),
-                                 (2, 1024)])
+                                 (2, 1024), (1, 1025), (8, 1296), (3, 2000),
+                                 (2, 4096)])
 def test_group_rects_kernel_matches_plain(dev, rng, m, n):
     rects, valid = _instances(rng, m, n)
     got = group_rectangles_cuda(rects.to(dev), valid.to(dev))
@@ -80,9 +84,13 @@ def _all_invalid(rng, n):
 
 @pytest.mark.parametrize("case,n", [(chain_rects, 256),
                                     (chain_rects, 1023),
+                                    (chain_rects, 1296),
+                                    (chain_rects, 4096),
                                     (_one_component, 256),
                                     (_one_component, 1024),
-                                    (_all_invalid, 256)])
+                                    (_one_component, 4096),
+                                    (_all_invalid, 256),
+                                    (_all_invalid, 1296)])
 def test_group_rects_kernel_matches_plain_on_hard_inputs(dev, rng, case, n):
     rects, valid = case(rng, n)
     got = group_rectangles_cuda(rects.to(dev), valid.to(dev))
@@ -119,9 +127,9 @@ def test_group_rects_kernel_rejects_what_it_does_not_take(dev):
     with pytest.raises(ValueError):
         group_rectangles_cuda(rects.transpose(0, 1).contiguous()
                               .transpose(0, 1), valid)
-    with pytest.raises(ValueError):
-        group_rectangles_cuda(torch.zeros(1, 1025, 4, device=dev),
-                              torch.ones(1, 1025, dtype=torch.bool,
+    with pytest.raises(ValueError):       # beyond MAX_CANDIDATES = 4096
+        group_rectangles_cuda(torch.zeros(1, 4097, 4, device=dev),
+                              torch.ones(1, 4097, dtype=torch.bool,
                                          device=dev))
 
 

@@ -10,7 +10,7 @@ import pytest
 import torch
 
 from tpufcn.models import build as jax_build
-from torchfcn.convert.from_jax import jax_path, load_jax_params
+from torchfcn.convert.from_jax import load_jax_params
 from torchfcn.models import build
 from torchfcn.models.layers import CaffeConv
 
@@ -48,12 +48,13 @@ def test_weight_bridge_is_strict(reference):
     params, _, _ = reference
     model = build("googlenet_detectnet")
     leaves = dict(_leaves(params["params"]))
-    names = [n for n, _ in model.named_parameters()]
+    paths = model.flax_paths()
     # one JAX leaf per port parameter, and no two parameters share one
-    assert sorted(map(jax_path, names)) == sorted(leaves)
+    assert sorted(paths) == sorted(n for n, _ in model.named_parameters())
+    assert sorted(paths.values()) == sorted(leaves)
     load_jax_params(model, params)
     for name, p in model.named_parameters():
-        v = leaves[jax_path(name)]
+        v = leaves[paths[name]]
         want = v.transpose(3, 2, 0, 1) if v.ndim == 4 else v
         assert np.array_equal(p.detach().numpy(), want), name
 
@@ -72,10 +73,11 @@ def test_weight_bridge_is_strict(reference):
 
 
 def test_jax_path_names():
-    assert jax_path("conv1.weight") == ("conv1/7x7_s2", "conv", "kernel")
-    assert jax_path("inception_4e.b5x5_reduce.bias") == (
+    paths = build("googlenet_detectnet").flax_paths()
+    assert paths["conv1.weight"] == ("conv1/7x7_s2", "conv", "kernel")
+    assert paths["inception_4e.b5x5_reduce.bias"] == (
         "inception_4e", "5x5_reduce", "conv", "bias")
-    assert jax_path("bbox.weight") == ("bbox/regressor", "conv", "kernel")
+    assert paths["bbox.weight"] == ("bbox/regressor", "conv", "kernel")
 
 
 def test_f32_forward_matches_jax(reference):

@@ -1,54 +1,27 @@
-"""Load a tpufcn (JAX/Flax) parameter tree into the port's GoogLeNet.
+"""Load a tpufcn (JAX/Flax) parameter tree into a model of the port's zoo.
 
 The tree comes as nested dicts of numpy arrays (``jax.tree.map(np.asarray,
-params)``), Caffe-named as in the JAX package::
+params)``), named as in the JAX package, e.g.::
 
     {"params": {"conv1/7x7_s2": {"conv": {"kernel": HWIO, "bias": (O,)}},
-                "inception_3a": {"1x1": {"conv": {...}}, ...}, ...}}
+                "backbone": {"conv4_3": {"conv": {...}}},
+                "stage2_block0": {"down": {"kernel": ...},
+                                  "gn_down": {"scale": ..., "bias": ...}}}}
 
-Kernels go from HWIO to OIHW.  Loading is strict: every leaf of the tree is
-used exactly once and every parameter of the module is set.  This module
-needs neither JAX nor Flax.
+Each model declares where its parameters live in that tree
+(``ZooModel.flax_paths``).  Kernels go from HWIO to OIHW.  Loading is
+strict: every leaf of the tree is used exactly once and every parameter of
+the module is set.  This module needs neither JAX nor Flax.
 """
 
 from __future__ import annotations
 
-from typing import Any, Mapping, Tuple
+from typing import Any, Mapping
 
 import numpy as np
 import torch
-import torch.nn as nn
 
-# The one place that maps port module names to the Caffe layer names of the
-# JAX param tree: stem and heads, then the inception branches.
-MODULE_TO_CAFFE = {
-    "conv1": "conv1/7x7_s2",
-    "conv2_reduce": "conv2/3x3_reduce",
-    "conv2": "conv2/3x3",
-    "cvg": "cvg/classifier",
-    "bbox": "bbox/regressor",
-}
-BRANCH_TO_CAFFE = {
-    "b1x1": "1x1",
-    "b3x3_reduce": "3x3_reduce",
-    "b3x3": "3x3",
-    "b5x5_reduce": "5x5_reduce",
-    "b5x5": "5x5",
-    "pool_proj": "pool_proj",
-}
-LEAF_TO_FLAX = {"weight": "kernel", "bias": "bias"}
-
-
-def jax_path(param_name: str) -> Tuple[str, ...]:
-    """Port parameter name -> path of the JAX leaf, e.g.
-    ``inception_3a.b3x3.weight`` -> (inception_3a, 3x3, conv, kernel)."""
-    *modules, leaf = param_name.split(".")
-    if len(modules) == 1:
-        caffe = (MODULE_TO_CAFFE[modules[0]],)
-    else:
-        block, branch = modules
-        caffe = (block, BRANCH_TO_CAFFE[branch])
-    return (*caffe, "conv", LEAF_TO_FLAX[leaf])
+from torchfcn.models.layers import ZooModel
 
 
 def _flatten(tree: Mapping[str, Any], prefix=()):
@@ -60,14 +33,15 @@ def _flatten(tree: Mapping[str, Any], prefix=()):
 
 
 @torch.no_grad()
-def load_jax_params(model: nn.Module, tree: Mapping[str, Any]) -> None:
-    """Copy the JAX parameters into ``model`` in place (its dtype, device
+def load_jax_params(model: ZooModel, tree: Mapping[str, Any]) -> None:
+    """Copy the JAX parameters into ``model`` in place (its dtypes, device
     and memory format stay).  Raises KeyError on a missing or unused leaf
     and ValueError on a shape mismatch."""
     leaves = dict(_flatten(tree["params"] if "params" in tree else tree))
+    paths = model.flax_paths()
     used = set()
     for name, param in model.named_parameters():
-        path = jax_path(name)
+        path = paths[name]
         if path not in leaves:
             raise KeyError(f"no JAX leaf {'/'.join(path)} for {name}")
         used.add(path)

@@ -1,10 +1,13 @@
 // Batched OpenCV groupRectangles NMS, one thread block per (image, class)
-// instance and one thread per candidate.
+// instance of N <= 4096 candidates; each of the block's min(1024, N)
+// threads owns every min(1024, N)-th candidate.
 //
 // Replaces tpufcn/ops/pallas/group_rects.py::group_rectangles_pallas
-// (serving path: 8 frames x 4 classes = 32 instances of N = K = 256
-// candidates).  Semantics are those of tpufcn.ops.group_rects and of the
-// plain version torchfcn.ops.group_rects.group_rectangles:
+// (GoogLeNet serving path: 8 frames x 4 classes = 32 instances of
+// N = K = 256 candidates; fcn8s_bbox at its default capacity: 8 frames x 10
+// classes of N = 36 x 36 = 1296 grid cells).  Semantics are those of
+// tpufcn.ops.group_rects and of the plain version
+// torchfcn.ops.group_rects.group_rectangles:
 //   1. rint the rects, read as (x, y, w, h) (the reference passes corner
 //      boxes; the field reading is its quirk);
 //   2. components of the SimilarRects graph, labelled by smallest index;
@@ -21,8 +24,9 @@
 // repeated 0/1 squaring on the MXU; on the GPU that would be N^2 storage and
 // log2(N) matmuls per instance.  Here the components come from a one-pass
 // union-find in shared memory: the pairs j < i are spread evenly over the
-// threads (threads 2k and 2k + 1 take rows k and N - 1 - k, the even and
-// the odd j, about (N - 1) / 2 pairs each), and
+// threads (rows k and N - 1 - k make a row pair of N - 1 pairs, split by j
+// modulo g into g work items; at N <= 1024 g = 2 and threads 2k and
+// 2k + 1 take row pair k, the even and the odd j), and
 // each similar pair unites its two roots, hooking the larger root under
 // the smaller with atomicCAS (retried when another thread hooked it first),
 // with path halving in find.  Every parent pointer points to a smaller
@@ -38,7 +42,8 @@
 // with the kept ones only, from a list, not with all N slots.
 // delta = (eps * 0.5) * (min w + min h) and dx = rint(w * eps) are computed
 // in float32, as the JAX paths do, so borderline comparisons break the same
-// way.
+// way.  An instance holds 56 bytes per candidate in shared memory (an
+// invalid candidate is a parent of -1, not a flag), which caps N at 4096.
 #include "common.cuh"
 
 namespace torchfcn {
@@ -97,119 +102,134 @@ __global__ void group_rects_kernel(const float* __restrict__ rects,
                                    float* __restrict__ out_rects,
                                    int* __restrict__ out_weights,
                                    uint8_t* __restrict__ out_valid, int n,
-                                   int group_threshold, float eps) {
+                                   int group, int group_threshold,
+                                   float eps) {
   // shared memory: sums[4][n] (64-bit first, for alignment), box[n]
-  // (x, y, w, h; later the cluster means), label[n] (union-find parents;
-  // later the kept clusters), count[n], ok[n]
+  // (x, y, w, h; later the cluster means), label[n] (union-find parents,
+  // -1 for an invalid candidate; later the kept clusters), count[n]
   extern __shared__ __align__(16) long long smem[];
   long long* sums = smem;
   float4* box = reinterpret_cast<float4*>(sums + 4 * n);
   int* label = reinterpret_cast<int*>(box + n);
   int* count = label + n;
-  uint8_t* ok = reinterpret_cast<uint8_t*>(count + n);
   __shared__ int kept;
 
-  const int i = threadIdx.x;
-  const int lane = i & 31;
-  const bool active = i < n;
+  // thread t owns candidates t, t + threads, t + 2 threads, ...
+  const int t = threadIdx.x;
+  const int threads = blockDim.x;
+  const int lane = t & 31;
   const size_t base = static_cast<size_t>(blockIdx.x) * n;
 
-  bool vi = false;
-  if (active) {
-    const float4 r = reinterpret_cast<const float4*>(rects)[base + i];
-    box[i] = make_float4(rintf(r.x), rintf(r.y), rintf(r.z), rintf(r.w));
-    vi = valid[base + i] != 0;
-    ok[i] = vi;
-    label[i] = i;
-    count[i] = 0;
-    for (int c = 0; c < 4; ++c) sums[c * n + i] = 0;
+  for (int c = t; c < n; c += threads) {
+    const float4 r = reinterpret_cast<const float4*>(rects)[base + c];
+    box[c] = make_float4(rintf(r.x), rintf(r.y), rintf(r.z), rintf(r.w));
+    label[c] = valid[base + c] ? c : -1;
+    count[c] = 0;
+    for (int q = 0; q < 4; ++q) sums[q * n + c] = 0;
   }
-  if (i == 0) kept = 0;
+  if (t == 0) kept = 0;
   __syncthreads();
 
-  // one pass of union-find over the SimilarRects graph: threads 2k and
-  // 2k + 1 test the pairs (row, j < row) of rows k and n - 1 - k, the even
-  // and the odd j, four at a time so that their loads overlap
+  // one pass of union-find over the SimilarRects graph.  Work item
+  // (k, u) tests the pairs (row, j < row) of rows k and n - 1 - k (n - 1
+  // pairs together) whose j is u modulo ``group``, four at a time so that
+  // their loads overlap; the launcher picks ``group`` so that the busiest
+  // thread has the fewest tests.  Lanes with one u read one box at a time.
   const float half_eps = eps * 0.5f;
   volatile int* parent = label;
-  const int k = i >> 1;
-  for (int pass = 0; pass < 2; ++pass) {
-    const int row = pass == 0 ? k : n - 1 - k;
-    if (k >= (n + 1) / 2 || (pass == 1 && row == k) || !ok[row]) continue;
-    const float4 br = box[row];
-    for (int j0 = i & 1; j0 < row; j0 += 8) {
-      bool hit[4];
+  const int items = (n + 1) / 2 * group;
+  for (int w = t; w < items; w += threads) {
+    const int k = w / group;
+    const int u = w - k * group;
+    for (int pass = 0; pass < 2; ++pass) {
+      const int row = pass == 0 ? k : n - 1 - k;
+      if ((pass == 1 && row == k) || parent[row] < 0) continue;
+      const float4 br = box[row];
+      for (int j0 = u; j0 < row; j0 += 4 * group) {
+        bool hit[4];
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int j = min(j0 + 2 * u, row - 1);
-        hit[u] = j0 + 2 * u < row && ok[j] && similar(br, box[j], half_eps);
-      }
+        for (int v = 0; v < 4; ++v) {
+          const int j = min(j0 + v * group, row - 1);
+          hit[v] = j0 + v * group < row && parent[j] >= 0 &&
+                   similar(br, box[j], half_eps);
+        }
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        // most similar pairs of a dense cluster already share a parent
-        const int j = j0 + 2 * u;
-        if (hit[u] && parent[row] != parent[j]) unite(parent, row, j);
+        for (int v = 0; v < 4; ++v) {
+          // most similar pairs of a dense cluster already share a parent
+          const int j = j0 + v * group;
+          if (hit[v] && parent[row] != parent[j]) unite(parent, row, j);
+        }
       }
     }
   }
   __syncthreads();  // every union is done: one root per component
-  const int lab = (active && vi) ? find(parent, i) : -1;
 
   // cluster sums and counts at the root's slot: the lanes of a warp with
   // one root add as one, their lowest lane summing their boxes in exact
-  // 64-bit integers
-  const unsigned group = __match_any_sync(0xFFFFFFFFu, lab);
-  if (lab >= 0 && __ffs(group) - 1 == lane) {
-    long long s[4] = {0, 0, 0, 0};
-    for (unsigned g = group; g; g &= g - 1) {
-      const float4 b = box[i - lane + __ffs(g) - 1];
-      s[0] += static_cast<long long>(b.x);
-      s[1] += static_cast<long long>(b.y);
-      s[2] += static_cast<long long>(b.z);
-      s[3] += static_cast<long long>(b.w);
-    }
-    atomicAdd(&count[lab], __popc(group));
-    for (int c = 0; c < 4; ++c) {
-      atomicAdd(reinterpret_cast<unsigned long long*>(&sums[c * n + lab]),
-                static_cast<unsigned long long>(s[c]));
+  // 64-bit integers.  Every lane runs every step, for __match_any_sync.
+  const int steps = (n + threads - 1) / threads;
+  for (int s = 0; s < steps; ++s) {
+    const int c = t + s * threads;
+    const int lab = (c < n && parent[c] >= 0) ? find(parent, c) : -1;
+    const unsigned same = __match_any_sync(0xFFFFFFFFu, lab);
+    if (lab >= 0 && __ffs(same) - 1 == lane) {
+      long long acc[4] = {0, 0, 0, 0};
+      for (unsigned g = same; g; g &= g - 1) {
+        const float4 b = box[c - lane + __ffs(g) - 1];
+        acc[0] += static_cast<long long>(b.x);
+        acc[1] += static_cast<long long>(b.y);
+        acc[2] += static_cast<long long>(b.z);
+        acc[3] += static_cast<long long>(b.w);
+      }
+      atomicAdd(&count[lab], __popc(same));
+      for (int q = 0; q < 4; ++q) {
+        atomicAdd(reinterpret_cast<unsigned long long*>(&sums[q * n + lab]),
+                  static_cast<unsigned long long>(acc[q]));
+      }
     }
   }
   __syncthreads();
 
-  // means (0 for slots that are no cluster's root); the kept clusters'
-  // list replaces the parents, which no thread reads any more
-  const int cnt = active ? count[i] : 0;
-  float mean[4] = {0.f, 0.f, 0.f, 0.f};
-  if (cnt > 0) {
-    for (int c = 0; c < 4; ++c)
-      mean[c] = static_cast<float>(div_round_half_even(sums[c * n + i], cnt));
+  // means (0 for slots that are no cluster's root) replace the boxes; the
+  // kept clusters' list replaces the parents, which no thread reads any more
+  for (int c = t; c < n; c += threads) {
+    const int cnt = count[c];
+    float mean[4] = {0.f, 0.f, 0.f, 0.f};
+    if (cnt > 0) {
+      for (int q = 0; q < 4; ++q)
+        mean[q] = static_cast<float>(div_round_half_even(sums[q * n + c], cnt));
+    }
+    box[c] = make_float4(mean[0], mean[1], mean[2], mean[3]);
+    if (cnt > group_threshold) label[atomicAdd(&kept, 1)] = c;
   }
-  const bool survive = cnt > group_threshold;
-  if (active) box[i] = make_float4(mean[0], mean[1], mean[2], mean[3]);
-  if (survive) label[atomicAdd(&kept, 1)] = i;
   __syncthreads();
 
-  if (!active) return;
   // containment suppression among the kept clusters, in any order: a
   // cluster goes if any other kept cluster suppresses it
-  bool suppressed = false;
-  if (survive) {
-    for (int q = 0; q < kept && !suppressed; ++q) {
-      const int j = label[q];
-      if (j == i) continue;
-      const int nj = count[j];
-      const float4 bj = box[j];
-      const float dx = rintf(bj.z * eps), dy = rintf(bj.w * eps);
-      const bool inside = mean[0] >= bj.x - dx && mean[1] >= bj.y - dy &&
-                          mean[0] + mean[2] <= bj.x + bj.z + dx &&
-                          mean[1] + mean[3] <= bj.y + bj.w + dy;
-      suppressed = inside && (nj > max(3, cnt) || cnt < 3);
+  for (int c = t; c < n; c += threads) {
+    const int cnt = count[c];
+    const float4 m = box[c];
+    const bool survive = cnt > group_threshold;
+    bool suppressed = false;
+    if (survive) {
+      for (int q = 0; q < kept && !suppressed; ++q) {
+        const int j = label[q];
+        if (j == c) continue;
+        const int nj = count[j];
+        const float4 bj = box[j];
+        const float dx = rintf(bj.z * eps), dy = rintf(bj.w * eps);
+        const bool inside = m.x >= bj.x - dx && m.y >= bj.y - dy &&
+                            m.x + m.z <= bj.x + bj.z + dx &&
+                            m.y + m.w <= bj.y + bj.w + dy;
+        suppressed = inside && (nj > max(3, cnt) || cnt < 3);
+      }
     }
+    const bool keep = survive && !suppressed;
+    reinterpret_cast<float4*>(out_rects)[base + c] =
+        keep ? m : make_float4(0.f, 0.f, 0.f, 0.f);
+    out_weights[base + c] = keep ? cnt : 0;
+    out_valid[base + c] = keep;
   }
-  const bool keep = survive && !suppressed;
-  for (int c = 0; c < 4; ++c) out_rects[(base + i) * 4 + c] = keep ? mean[c] : 0.f;
-  out_weights[base + i] = keep ? cnt : 0;
-  out_valid[base + i] = keep;
 }
 
 }  // namespace
@@ -217,9 +237,29 @@ __global__ void group_rects_kernel(const float* __restrict__ rects,
 
 using namespace torchfcn;
 
-// bytes of shared memory per candidate: sums, box, label, count, ok
-constexpr size_t kSmemPerCandidate = 4 * 8 + 4 * 4 + 4 + 4 + 1;
-constexpr int kMaxCandidates = 1024;
+// bytes of shared memory per candidate: sums, box, label, count
+constexpr size_t kSmemPerCandidate = 4 * 8 + 4 * 4 + 4 + 4;
+// 4096 x 56 bytes = 224 KB, within the 227 KB a block may have on Hopper
+constexpr int kMaxCandidates = 4096;
+constexpr int kMaxThreads = 1024;
+
+// threads per row pair (the union pass's work items are row pairs times
+// this), from 2 to 64: the count whose busiest thread runs the fewest pair
+// tests, the smallest such.  2 for n <= 1024, one item per thread.
+static int row_pair_group(int n, int threads) {
+  const long long pairs = (n + 1) / 2;
+  int best = 2;
+  double best_tests = 1e300;
+  for (int g = 2; g <= 64; ++g) {
+    const long long per_thread = (pairs * g + threads - 1) / threads;
+    const double tests = static_cast<double>(per_thread) * n / g;
+    if (tests < best_tests) {
+      best = g;
+      best_tests = tests;
+    }
+  }
+  return best;
+}
 
 extern "C" int torchfcn_group_rects(const void* rects, const void* valid,
                                     void* out_rects, void* out_weights,
@@ -229,7 +269,7 @@ extern "C" int torchfcn_group_rects(const void* rects, const void* valid,
   if (m <= 0 || n <= 0 || n > kMaxCandidates) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int threads = (n + 31) / 32 * 32;
+  const int threads = n < kMaxThreads ? (n + 31) / 32 * 32 : kMaxThreads;
   const size_t smem = kSmemPerCandidate * n;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -240,7 +280,8 @@ extern "C" int torchfcn_group_rects(const void* rects, const void* valid,
   group_rects_kernel<<<m, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(rects), static_cast<const uint8_t*>(valid),
       static_cast<float*>(out_rects), static_cast<int*>(out_weights),
-      static_cast<uint8_t*>(out_valid), n, group_threshold, eps);
+      static_cast<uint8_t*>(out_valid), n, row_pair_group(n, threads),
+      group_threshold, eps);
   return static_cast<int>(cudaGetLastError());
 }
 

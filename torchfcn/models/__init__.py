@@ -1,1 +1,1 @@
-from torchfcn.models.registry import build, get_spec  # noqa: F401
+from torchfcn.models.registry import build, get_spec, names  # noqa: F401

@@ -33,7 +33,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from torchfcn.models.layers import (
-    CaffeConv, LRN, LRNMaxPool, max_pool, nchw, nhwc)
+    CaffeConv, LRN, LRNMaxPool, ZooModel, max_pool, nchw, nhwc)
 from torchfcn.ops.cuda.stem import stem_tail_cuda
 
 # Inception block widths: (1x1, 3x3_reduce, 3x3, 5x5_reduce, 5x5, pool_proj)
@@ -87,12 +87,21 @@ class Inception(nn.Module):
         return torch.cat([b1, b3, b5, bp], dim=1)
 
 
-class GoogLeNetDetectNet(nn.Module):
+class GoogLeNetDetectNet(ZooModel):
     """Input: raw BGR frames (B, H, W, 3), uint8 or float in [0, 255].
 
     Returns {"coverage": (B, H/16, W/16, C) float32 sigmoid probabilities,
              "bboxes": (B, H/16, W/16, 4C) float32 corner offsets}, NHWC.
     """
+
+    FLAX_NAMES = {
+        "conv1": "conv1/7x7_s2", "conv2_reduce": "conv2/3x3_reduce",
+        "conv2": "conv2/3x3", "cvg": "cvg/classifier",
+        "bbox": "bbox/regressor",
+        # inception branches
+        "b1x1": "1x1", "b3x3_reduce": "3x3_reduce", "b3x3": "3x3",
+        "b5x5_reduce": "5x5_reduce", "b5x5": "5x5",
+    }
 
     def __init__(self, num_classes: int = 4,
                  store_dtype: Optional[torch.dtype] = None,
@@ -120,13 +129,6 @@ class GoogLeNetDetectNet(nn.Module):
             cin = block.out_channels
         self.cvg = CaffeConv(cin, num_classes, 1)
         self.bbox = CaffeConv(cin, 4 * num_classes, 1)
-
-    @torch.no_grad()
-    def init_weights(self, generator: torch.Generator) -> None:
-        """Seeded Caffe "xavier" init of every conv, in registration order."""
-        for module in self.modules():
-            if isinstance(module, CaffeConv):
-                module.init_xavier_(generator)
 
     def forward(self, frames: torch.Tensor) -> Dict[str, torch.Tensor]:
         dtype = self.conv1.weight.dtype

@@ -11,7 +11,8 @@ import torch
 from torchfcn.ops import group_rects as plain
 from torchfcn.ops.cuda import build
 
-MAX_CANDIDATES = 1024   # one thread per candidate in one thread block
+# one thread block per instance, 56 bytes of shared memory per candidate
+MAX_CANDIDATES = 4096
 
 
 def group_rectangles_cuda(rects: torch.Tensor,

@@ -52,14 +52,21 @@ def _similar(r: torch.Tensor, valid: torch.Tensor, eps: float) -> torch.Tensor:
 
 def _component_labels(adj: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """(M, N) int64 labels: each component's smallest member index, by the
-    reflexive transitive closure (repeated 0/1 squaring).  Invalid rows keep
-    their own index."""
+    reflexive transitive closure (repeated 0/1 squaring, at most
+    ceil(log2(N - 1)) times, until it stops changing), over the instances
+    with a valid candidate.  Invalid rows keep their own index."""
     n = adj.shape[-1]
     idx = torch.arange(n, device=adj.device)
-    a = (adj | torch.eye(n, dtype=torch.bool, device=adj.device)).float()
+    labels = idx.expand(valid.shape).clone()
+    some = valid.any(dim=-1)
+    a = (adj[some] | torch.eye(n, dtype=torch.bool, device=adj.device)
+         ).float()
     for _ in range(max(1, math.ceil(math.log2(max(n - 1, 2))))):
-        a = (a @ a > 0).float()
-    labels = torch.where(a > 0, idx, n).amin(dim=-1)
+        closed = (a @ a > 0).float()
+        if torch.equal(closed, a):
+            break
+        a = closed
+    labels[some] = torch.where(a > 0, idx, n).amin(dim=-1)
     return torch.where(valid, labels, idx)
 
 

@@ -1,6 +1,12 @@
-"""Frame resizing of the port (``tpufcn/ops/image.py::resize_bilinear``).
+"""Frame preprocessing of the port (``tpufcn/ops/image.py``): the demean +
+min-max of the VGG and FCN families, and frame resizing.
 
-``jax.image.resize(method="linear")`` with its default ``antialias=True``:
+``demean_bgr`` subtracts the ImageNet BGR means and min-max normalises each
+image over all its pixels and channels, in float32, as the reference's
+``demean_rgb_image`` does (on BGR images, despite its name).
+
+``resize_bilinear`` is ``jax.image.resize(method="linear")`` with its
+default ``antialias=True``:
 half-pixel sample positions and a triangle kernel that widens by the
 downscale factor, so a downscale averages every input pixel it covers.  It
 separates into one weight matrix per axis, applied here as two float32
@@ -13,6 +19,21 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+
+from torchfcn.core.config import IMAGENET_BGR_MEAN
+
+
+def demean_bgr(img: torch.Tensor) -> torch.Tensor:
+    """(..., H, W, 3) BGR images -> float32 in [0, 1]: subtract the
+    ImageNet BGR means, then min-max over each image.  A constant image
+    maps to zeros (the denominator is at least float32's smallest normal)
+    where the reference would divide by zero."""
+    out = img.to(torch.float32) - torch.tensor(
+        IMAGENET_BGR_MEAN, dtype=torch.float32, device=img.device)
+    lo = out.amin(dim=(-3, -2, -1), keepdim=True)
+    hi = out.amax(dim=(-3, -2, -1), keepdim=True)
+    return (out - lo) / torch.clamp(hi - lo,
+                                    min=torch.finfo(torch.float32).tiny)
 
 
 def resize_weights(in_size: int, out_size: int,
@@ -51,4 +72,14 @@ def resize_bilinear(img: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
     if in_w != w:
         x = torch.einsum("...ywc,wx->...yxc", x,
                          resize_weights(in_w, w, x.device))
+    return x
+
+
+def preprocess_bgr(img: torch.Tensor, net_hw: Tuple[int, int]) -> torch.Tensor:
+    """Demean + min-max at the input resolution, then resize to the net's
+    (height, width) where that differs: the reference's order (demean
+    first, then resize)."""
+    x = demean_bgr(img)
+    if tuple(x.shape[-3:-1]) != tuple(net_hw):
+        x = resize_bilinear(x, net_hw)
     return x

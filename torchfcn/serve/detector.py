@@ -1,8 +1,9 @@
 """The serving pipeline of the port (``tpufcn/serve/detector.py``):
 
-    raw BGR frames -> resize to the net's size (other sizes only) ->
-    Power(-127) shift -> forward -> grid decode -> top-K candidate select ->
-    groupRectangles NMS -> rescale to frame coords
+    raw BGR frames -> preprocess ("shift127": resize other sizes only;
+    "demean": demean + min-max at the input resolution, then resize) ->
+    forward -> grid decode -> top-K candidate select -> groupRectangles NMS
+    -> rescale to frame coords
 
 PyTorch runs it eagerly; the stem (LRN, or the fused stem tail of the fp8
 serving preset) and groupRectangles steps are hand-written CUDA kernels on a
@@ -16,12 +17,13 @@ from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn as nn
 
 from torchfcn.core.config import DetectorConfig
 from torchfcn.models import build as build_model, get_spec
 from torchfcn.ops.grid_codec import decode_gridboxes
 from torchfcn.ops.group_rects import vote_boxes_batched
-from torchfcn.ops.image import resize_bilinear
+from torchfcn.ops.image import preprocess_bgr, resize_bilinear
 
 # select_candidates clamps rounded coords to what the reference's packed sort
 # payload holds, so that results stay bit-identical to it
@@ -53,14 +55,14 @@ def preprocess(frames: torch.Tensor, mode: str,
                net_hw: Tuple[int, int]) -> torch.Tensor:
     """Family-specific preprocessing (``tpufcn/serve/detector.py:107-126``).
 
-    "shift127", the GoogLeNet DetectNet family: frames at the net's size go
-    to the model as they are (it applies the Power(-127) shift itself);
-    other sizes are resized, as float32, with JAX's antialiased bilinear
-    resize.  The other families' "demean" is not ported yet.
+    "shift127" (GoogLeNet DetectNet, ResNet-FPN): frames at the net's size
+    go to the model as they are (it normalises them itself); other sizes
+    are resized, as float32, with JAX's antialiased bilinear resize.
+    "demean" (VGG and FCN families): float32, demean + min-max per image at
+    the input resolution, then the resize where the size differs.
     """
-    if mode != "shift127":
-        raise NotImplementedError(f"preprocessing {mode!r} is not ported; "
-                                  f"only 'shift127' is")
+    if mode == "demean":
+        return preprocess_bgr(frames, net_hw)
     if tuple(frames.shape[-3:-1]) == tuple(net_hw):
         return frames
     return resize_bilinear(frames, net_hw)
@@ -94,8 +96,26 @@ class DetectionResult(NamedTuple):
         return out
 
 
+def serving_model(model_name: str, dtype: torch.dtype, rng_seed: int,
+                  model_kwargs: Optional[dict], device) -> nn.Module:
+    """The zoo model ``model_name`` built with ``model_kwargs``, seeded
+    Caffe "xavier" weights from ``rng_seed``, in ``dtype`` and
+    ``channels_last`` on ``device`` ("cuda", which raises without CUDA, or
+    "cpu"), in eval mode."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{model_name} on device='cuda' needs a CUDA "
+                           f"device; pass device='cpu' to run on the CPU")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"the port runs on 'cuda' or 'cpu', got {device}")
+    model = build_model(model_name, **(model_kwargs or {}))
+    model.init_weights(torch.Generator().manual_seed(rng_seed))
+    return model.to(device=device, dtype=dtype,
+                    memory_format=torch.channels_last).eval()
+
+
 class Detector:
-    """Detector over the GoogLeNet DetectNet family.
+    """Detector over any detection family of the zoo.
 
     Example:
         det = Detector("googlenet_detectnet", max_candidates=256)
@@ -105,6 +125,10 @@ class Detector:
     "cpu" to run the plain versions of the kernels.  Weights are the seeded
     Caffe "xavier" init (``rng_seed``) until loaded, e.g. with
     ``torchfcn.convert.from_jax.load_jax_params(det.model, tree)``.
+    ``model_kwargs`` go to the model's constructor (e.g.
+    ``{"store_dtype": torch.float8_e5m2}``); a ``num_classes`` there also
+    sets the decode grid's.  The NMS kernel takes at most
+    ``ops.cuda.group_rects.MAX_CANDIDATES`` candidates per class.
     """
 
     def __init__(self,
@@ -113,31 +137,25 @@ class Detector:
                  dtype: torch.dtype = torch.bfloat16,
                  max_candidates: Optional[int] = None,
                  rng_seed: int = 0,
+                 model_kwargs: Optional[dict] = None,
                  device="cuda"):
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("Detector(device='cuda') needs a CUDA device; "
-                               "pass device='cpu' to run on the CPU")
-        if self.device.type not in ("cpu", "cuda"):
-            raise ValueError(f"Detector runs on 'cuda' or 'cpu', got "
-                             f"{self.device}")
         self.spec = get_spec(model_name)
-        if self.spec.preprocessing != "shift127":
-            raise NotImplementedError(
-                f"{model_name}: preprocessing {self.spec.preprocessing!r} "
-                f"is not ported; only 'shift127' is")
+        if "coverage" not in self.spec.heads:
+            raise ValueError(f"{model_name} has no detection heads; serve "
+                             f"it with torchfcn.serve.segment.Segmenter")
+        self.model = serving_model(model_name, dtype, rng_seed, model_kwargs,
+                                   device)
+        self.device = torch.device(device)
+        grid = self.spec.grid
+        if model_kwargs and "num_classes" in model_kwargs:
+            grid = dataclasses.replace(
+                grid, num_classes=model_kwargs["num_classes"])
         self.config = config or DetectorConfig(
-            grid=self.spec.grid, model=model_name,
-            max_candidates=max_candidates)
+            grid=grid, model=model_name, max_candidates=max_candidates)
         self.grid = self.config.grid
-        model = build_model(model_name)
-        model.init_weights(torch.Generator().manual_seed(rng_seed))
-        self.model = model.to(device=self.device, dtype=dtype,
-                              memory_format=torch.channels_last).eval()
 
     def _forward(self, frames: torch.Tensor):
-        """Preprocess + model forward -> (coverage, bboxes) NHWC grids.
-        The model applies the Power(-127) shift to the raw frames."""
+        """Preprocess + model forward -> (coverage, bboxes) NHWC grids."""
         net_hw = (self.grid.im_height, self.grid.im_width)
         out = self.model(preprocess(frames, self.spec.preprocessing, net_hw))
         return out["coverage"], out["bboxes"]

@@ -1,0 +1,55 @@
+"""The segmentation serving surface of the port (``bench.py::_seg_forward``
+in the JAX package):
+
+    raw BGR frames -> demean + min-max per image -> FCN forward -> argmax
+    over the classes of the full-resolution ``seg`` logits
+
+The segmentation family has no decode or NMS stage.  Frames are not
+resized: FCN-32s returns labels of the frame's size for heights and widths
+that are multiples of 16 (its native size is 224x224).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from torchfcn.models import get_spec
+from torchfcn.ops.image import demean_bgr
+from torchfcn.serve.detector import serving_model
+
+
+class Segmenter:
+    """Per-pixel class labels from a segmentation model of the zoo.
+
+    Example:
+        seg = Segmenter("fcn32s_seg_serving")
+        labels = seg(frames_u8)   # (B, H, W, 3) BGR -> (B, H, W) int64
+
+    ``device`` defaults to "cuda" and raises if CUDA is absent; pass "cpu"
+    to run on the CPU.  Weights are the seeded Caffe "xavier" init
+    (``rng_seed``) until loaded with
+    ``torchfcn.convert.from_jax.load_jax_params(seg.model, tree)``.
+    """
+
+    def __init__(self, model_name: str = "fcn32s_seg",
+                 dtype: torch.dtype = torch.bfloat16, rng_seed: int = 0,
+                 device="cuda"):
+        self.spec = get_spec(model_name)
+        if "seg" not in self.spec.heads:
+            raise ValueError(f"{model_name} has no segmentation head")
+        self.model = serving_model(model_name, dtype, rng_seed, None, device)
+        self.device = torch.device(device)
+
+    def logits(self, frames: torch.Tensor) -> torch.Tensor:
+        """(B, H, W, 3) frames -> (B, H, W, C) float32 ``seg`` logits."""
+        return self.model(demean_bgr(frames))["seg"]
+
+    @torch.inference_mode()
+    def __call__(self, frames) -> torch.Tensor:
+        """frames: (B, H, W, 3) BGR, uint8 or float in [0, 255]; returns
+        (B, H, W) int64 labels, the first of equal maxima."""
+        frames = torch.as_tensor(frames, device=self.device)
+        if frames.dim() != 4 or frames.shape[-1] != 3:
+            raise ValueError(f"frames must be (B, H, W, 3), got "
+                             f"{tuple(frames.shape)}")
+        return torch.argmax(self.logits(frames), dim=-1)
