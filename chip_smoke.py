@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Smoke run of the torchfcn serving path on one NVIDIA GPU.
+"""Smoke run of the torchfcn serving and training paths on one NVIDIA GPU.
 
 Run from the repository root:
 
     python3 chip_smoke.py
 
 Phases, each printing one line; any failure raises and exits non-zero.
-TF32 is off throughout, so the float32 plain versions are full float32.
+TF32 is off throughout (but for the TF32 trap of phase 8), so the float32
+plain versions are full float32.
 
 1. device: the card's name and power limit, as nvidia-smi reports them;
 2. build: compile ``torchfcn/csrc`` with nvcc for sm_90a, one nvcc per
@@ -71,10 +72,34 @@ TF32 is off throughout, so the float32 plain versions are full float32.
    frames of 224x224: on 2 frames, at least 98 % of the labels equal to
    the CPU's, and every other pixel a near-tie on the CPU (top two logits
    within 5 % of the logits' scale in bf16, 30 % in the e5m2 preset, whose
-   flipped roundings spread).
+   flipped roundings spread);
+8. train: the input gradients through the lrn and lrn_maxpool custom ops
+   against autograd through their plain versions on the card, at the main
+   path's shapes and with 67 channels, float32 within rtol 1e-6 and bf16
+   within 1 ulp; the TF32 trap: with TF32 allowed by the caller, one
+   ``parity()`` step of googlenet_detectnet at 448x448, B = 2, dropout 0,
+   on the card and on the CPU from the same weights and batch, the losses
+   within rtol 1e-5, the gradients (against the card's with TF32 off
+   globally, and against the CPU's) and the updated parameters as stated
+   at PARITY_LOSS_RTOL, with a control step whose backward runs in TF32
+   failing the gradient limits, the caller's flags back after it, and the
+   card's loss equal to the same forward's with TF32 off globally and
+   unequal to it with TF32 on and no policy scope; the bf16
+   Trainer of googlenet_detectnet at B = 8 for 3 warm-up and 20 timed
+   steps on one fixed batch (finite losses, the smoothed loss below the
+   first step's, a non-zero gradient on every parameter of conv1,
+   conv2_reduce and conv2, each LRN kernel launched once a step), with
+   steps/s, images/s, device busy per step, the LRN kernels' forward and
+   plain backward time and peak memory; a snapshot of it holding the
+   trained parameters, none at its step-0 value, whose
+   ``Detector.from_checkpoint`` gives the in-memory parameters' detections
+   (at least one), and which the e5m2 preset loads and serves; then
+   vgg_detectnet_train under the
+   bounding_box recipe (B = 32, 224x224), printed the same way.
 
-Then one JSON line of the families' numbers, one JSON line of per-kernel
-numbers, each kernel's time beside its
+Then one JSON line of the families' numbers, one of the training runs'
+numbers, one JSON line of per-kernel numbers (with each kernel's launches
+per training step), each kernel's time beside its
 bound (``bound_ms``: the larger of the bytes it must move over 3.35 TB/s
 and its operations over the peak rate of their type, 989 TFLOP/s on the
 bf16 tensor cores, 67 TFLOP/s in float32, or 4.18e12/s on the special-
@@ -89,6 +114,7 @@ the NMS height filter.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import statistics
@@ -843,6 +869,462 @@ def phase_families(rng, counters, card: str):
                   if key != "max_abs_err"}
 
 
+# the train phase: the LRN ops' gradients at the main path's shapes and at
+# an odd channel count (the scalar instance); the parity step at B = 2; the
+# bf16 Trainer of googlenet_detectnet at B = 8 (448x448) and of
+# vgg_detectnet_train under the bounding_box recipe (B = 32, 224x224), each
+# for TRAIN_WARMUP + TRAIN_STEPS steps on one fixed batch of M = 8 GT rects
+# per image
+GRAD_SHAPES = {"lrn": ((BATCH, 112, 112, 64), (BATCH, 57, 45, 67)),
+               "lrn_maxpool": ((BATCH, 112, 112, 192), (BATCH, 57, 45, 67))}
+TRAIN_WARMUP, TRAIN_STEPS, TRAIN_M = 3, 20, 8
+PROFILED_STEPS, TRAIN_TOP = 5, 10
+# the parity step's limits, each set between the sound step's reading and
+# a control step whose forward runs under the policy and whose backward and
+# update run with the caller's TF32 on (NVIDIA H100 80GB HBM3, 700 W):
+# - the losses, card vs CPU, within PARITY_LOSS_RTOL;
+# - every gradient within PARITY_CARD_GRAD_RTOL of its tensor's scale of
+#   the same step's on the card with TF32 off globally and no policy scope
+#   (sound at most 6.6e-7, the weight gradients' summation order varying
+#   from run to run; control 6.8e-4 in the median tensor);
+# - card vs CPU, the median over weight tensors of the median entry's
+#   |diff| over the tensor's scale at most PARITY_CPU_GRAD_MEDIAN (sound
+#   7.9e-9, control 2.3e-7).  A median over entries: where the two devices
+#   route a max pool's gradient to other positions of a near-tie (top two
+#   values of a window within the devices' rounding difference), every
+#   gradient below it differs at some entries by far more than rounding
+#   (max|diff| up to 2.2e-3 of scale in the sound step);
+# - the updated parameters, card vs CPU: at least PARITY_PARAM_SHARE of
+#   each tensor's entries within PARITY_PARAM_LR_FRACTION * lr (sound
+#   0.937 at least).  Adam's first update moves each entry by about
+#   lr * sign(g), so this holds the update and its gradients' signs, not
+#   the backward's precision (the control reads 0.956): the gradients
+#   carry that test.
+# The control must fail both gradient limits, or the trap cannot tell.
+PARITY_LOSS_RTOL = 1e-5
+PARITY_CARD_GRAD_RTOL = 1e-5
+PARITY_CPU_GRAD_MEDIAN = 5e-8
+PARITY_PARAM_LR_FRACTION, PARITY_PARAM_SHARE = 1e-2, 0.9
+# the coverage bias for the snapshot round trip: after the train run the
+# coverage head lies far below the 0.5 threshold on random frames, and
+# bias_heads' 1.0 leaves no detection
+SNAPSHOT_CVG_BIAS = 32.0
+
+
+def train_batch(rng, b: int, net: int, classes: int) -> dict:
+    """A seeded training batch: uint8 frames, TRAIN_M GT rects (x, y, w, h)
+    per image with labels and valid flags (about 80 % valid)."""
+    xy = rng.uniform(0, net * 0.7, (b, TRAIN_M, 2))
+    wh = rng.uniform(net / 16, net / 3, (b, TRAIN_M, 2))
+    return {"image": rng.integers(0, 256, (b, net, net, 3), dtype=np.uint8),
+            "rects": np.concatenate([xy, wh], -1).astype(np.float32),
+            "labels": rng.integers(0, classes, (b, TRAIN_M)).astype(np.int32),
+            "valid": rng.random((b, TRAIN_M)) < 0.8}
+
+
+def check_op_gradients(rng) -> None:
+    """The input gradients through the lrn and lrn_maxpool custom ops on
+    the card against autograd through their plain versions on the card,
+    same input and output gradient: float32 within rtol 1e-6, bf16 within
+    1 ulp."""
+    from torchfcn.ops.caffe_layers import lrn_across_channels
+    from torchfcn.ops.cuda.lrn import lrn_cuda
+    from torchfcn.ops.cuda.lrn_pool import lrn_maxpool, lrn_maxpool_cuda
+    ops = {"lrn": (lrn_cuda, lrn_across_channels),
+           "lrn_maxpool": (lrn_maxpool_cuda, lrn_maxpool)}
+    for name, (op, plain) in ops.items():
+        for shape in GRAD_SHAPES[name]:
+            for dtype in (torch.float32, torch.bfloat16):
+                x = (torch.from_numpy(rng.standard_normal(shape, np.float32))
+                     * 60).to("cuda", dtype).requires_grad_(True)
+                y = op(x)
+                g = torch.from_numpy(rng.standard_normal(
+                    tuple(y.shape), np.float32)).to("cuda", dtype)
+                got, = torch.autograd.grad(y, x, g)
+                want, = torch.autograd.grad(plain(x), x, g)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs()
+                if dtype == torch.bfloat16:
+                    bad = int((err > bf16_ulp(want)).sum())
+                    if bad:
+                        raise AssertionError(
+                            f"{name} {shape} bf16 gradient: {bad} values "
+                            f"beyond 1 ulp of the plain version's")
+                else:
+                    torch.testing.assert_close(
+                        got, want, rtol=1e-6, atol=0,
+                        msg=f"{name} {shape} float32 gradient")
+                log("train", f"{name} {shape} {dtype}: gradient through the "
+                    f"custom op vs autograd through the plain version on the "
+                    f"card, max|diff| {float(err.max()):.3g} "
+                    f"({int((err == 0).float().mean() * 100)} % bit-equal)")
+
+
+@contextlib.contextmanager
+def recorded_max_pools(inputs: list):
+    """Appends the input, arguments and keywords of every max pool that
+    ``torchfcn.ops.caffe_layers.max_pool_caffe`` runs inside the scope to
+    ``inputs``."""
+    import torch.nn.functional as F
+
+    from torchfcn.ops import caffe_layers
+
+    class Recording:
+        def __getattr__(self, name):
+            return getattr(F, name)
+
+        def max_pool2d(self, x, *args, **kw):
+            inputs.append((x.detach(), args, kw))
+            return F.max_pool2d(x, *args, **kw)
+
+    caffe_layers.F = Recording()
+    try:
+        yield
+    finally:
+        caffe_layers.F = F
+
+
+def routed_apart(card: list, cpu: list) -> tuple:
+    """(windows, windows routed to other positions, largest top-two gap of
+    those over the input's scale, smallest max|diff| between the card's
+    and the CPU's inputs over their scale among the pools with such
+    windows) of the max pools of one forward recorded on the card and on
+    the CPU.  The LRN + pool layer is left
+    out: its forward runs the kernel on the card and the plain version on
+    the CPU, so the two lists differ there."""
+    import torch.nn.functional as F
+    lrn_pool = (192, NET // 4, NET // 4)
+    card, cpu = ([r for r in side if tuple(r[0].shape[1:]) != lrn_pool]
+                 for side in (card, cpu))
+    windows = apart = 0
+    gap = 0.0
+    diff = []
+    for (xg, args, kw), (xc, _, _) in zip(card, cpu):
+        ig = F.max_pool2d(xg, *args, return_indices=True, **kw)[1].cpu()
+        yc, ic = F.max_pool2d(xc, *args, return_indices=True, **kw)
+        scale = float(xc.abs().max())
+        moved = (ig != ic) & (yc > 0)
+        windows += yc.numel()
+        apart += int(moved.sum())
+        if bool(moved.any()):
+            diff.append(float((xg.cpu() - xc).abs().max()) / scale)
+            flat = xc.flatten(2)
+            gaps = (flat.gather(2, ig.flatten(2))
+                    - flat.gather(2, ic.flatten(2))).abs().flatten()
+            gap = max(gap, float(gaps[moved.flatten()].max()) / scale)
+    return windows, apart, gap, min(diff, default=0.0)
+
+
+def parity_step(rng) -> None:
+    """The TF32 trap: TF32 allowed by the caller for cuDNN and matmuls, one
+    parity() step of googlenet_detectnet at 448x448, B = 2, dropout 0, on
+    the card and on the CPU from the same seeded weights and batch, held
+    to the limits stated above, and the caller's flags back afterwards.
+    On the card the same step's loss also equals, bit for bit, that of the
+    same float32 forward with TF32 off globally, and differs from it with
+    TF32 on and no policy scope: the scope, and not a default, turned TF32
+    off.  Prints how many max-pool windows the two devices routed apart."""
+    from torchfcn.core.config import GridConfig, TrainConfig
+    from torchfcn.core.dtypes import DTypePolicy
+    from torchfcn.models import build as build_model
+    from torchfcn.train.step import (
+        apply_update, init_state, make_grads_fn, make_loss_fn,
+        make_schedule, make_train_step)
+    cfg = TrainConfig(grid=GridConfig(NET, NET, 16, 4),
+                      model="googlenet_detectnet")
+    batch = train_batch(rng, 2, NET, 4)
+    loss_fn = make_loss_fn(cfg, preprocessing="shift127")
+
+    def fresh(dev):
+        state = init_state(build_model(cfg.model, dropout_rate=0.0), cfg,
+                           rng_seed=SEED, device=dev,
+                           policy=DTypePolicy.parity())
+        return state, {k: torch.as_tensor(v).to(dev)
+                       for k, v in batch.items()}
+
+    def grads(state) -> dict:
+        return {k: p.grad.cpu() for k, p in state.model.named_parameters()}
+
+    def unscoped() -> tuple:
+        """The parity model's loss and gradients on the card outside any
+        policy scope."""
+        state, b = fresh("cuda")
+        _, metrics = make_grads_fn(loss_fn)(state.model.train(), b,
+                                            state.generator)
+        return float(metrics["loss_total"]), grads(state)
+
+    def tf32_backward() -> tuple:
+        """The control: the forward under the policy's scope, the backward
+        and the update with the caller's flags (TF32 on)."""
+        state, b = fresh("cuda")
+        state.model.train()
+        with state.policy.precision():
+            loss, _ = loss_fn(state.model, b, state.generator)
+        loss.backward()
+        apply_update(state.optimizer, make_schedule(cfg), state.step)
+        return grads(state), {k: p.detach().cpu()
+                              for k, p in state.model.named_parameters()}
+
+    def worst(got: dict, want: dict) -> float:
+        """The largest max|diff| over a tensor's scale."""
+        return max(float((got[n] - w).abs().max()
+                         / w.abs().max().clamp(min=1e-30))
+                   for n, w in want.items())
+
+    def median_entry(got: dict, want: dict) -> float:
+        """The median over weight tensors of the median entry's |diff|
+        over the tensor's scale."""
+        return statistics.median(
+            float((got[n] - w).abs().median() / w.abs().max().clamp(
+                min=1e-30)) for n, w in want.items() if w.ndim >= 2)
+
+    def param_share(got: dict, want: dict) -> float:
+        """The smallest share of a tensor's entries within
+        PARITY_PARAM_LR_FRACTION * lr."""
+        return min(float(((got[n] - w).abs() <= cfg.learning_rate
+                          * PARITY_PARAM_LR_FRACTION).float().mean())
+                   for n, w in want.items())
+
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    out, pools = {}, {}
+    for dev in ("cuda", "cpu"):
+        state, b = fresh(dev)
+        pools[dev] = []
+        with recorded_max_pools(pools[dev]):
+            state, metrics = make_train_step(cfg, preprocessing="shift127")(
+                state, b)
+        out[dev] = (float(metrics["loss_total"]), grads(state),
+                    {k: p.detach().cpu()
+                     for k, p in state.model.named_parameters()})
+    if not (torch.backends.cudnn.allow_tf32
+            and torch.backends.cuda.matmul.allow_tf32):
+        raise AssertionError("the parity step did not restore the caller's "
+                             "TF32 flags")
+    tf32_loss, _ = unscoped()
+    control = tf32_backward()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    off_loss, off = unscoped()
+    (gpu_loss, gpu, gpu_p), (cpu_loss, cpu, cpu_p) = out["cuda"], out["cpu"]
+    if gpu_loss != off_loss or tf32_loss == gpu_loss:
+        raise AssertionError(
+            f"parity step on the card: loss {gpu_loss} under the policy, "
+            f"{off_loss} with TF32 off globally, {tf32_loss} with TF32 on "
+            f"and no scope")
+    rel = abs(gpu_loss - cpu_loss) / abs(cpu_loss)
+    read = dict(card=worst(gpu, off), cpu=median_entry(gpu, cpu),
+                params=param_share(gpu_p, cpu_p))
+    ctrl = dict(card=worst(control[0], off),
+                cpu=median_entry(control[0], cpu),
+                params=param_share(control[1], cpu_p))
+    failed = [f"{what} {got:.3g} beyond {limit:g}" for what, got, limit in (
+        ("loss rel", rel, PARITY_LOSS_RTOL),
+        ("gradients vs TF32 off on the card", read["card"],
+         PARITY_CARD_GRAD_RTOL),
+        ("gradients' median entry vs the cpu", read["cpu"],
+         PARITY_CPU_GRAD_MEDIAN)) if not got <= limit]
+    if not read["params"] >= PARITY_PARAM_SHARE:
+        failed.append(f"updated parameters: a tensor with only "
+                      f"{read['params']:.4f} of its entries within "
+                      f"{PARITY_PARAM_LR_FRACTION:g} lr")
+    if failed:
+        raise AssertionError(f"parity step: {'; '.join(failed)}")
+    if ctrl["card"] <= PARITY_CARD_GRAD_RTOL \
+            or ctrl["cpu"] <= PARITY_CPU_GRAD_MEDIAN:
+        raise AssertionError(f"parity step: a backward in TF32 passes the "
+                             f"gradient limits ({ctrl}), the trap cannot "
+                             f"tell it")
+    windows, apart, gap, diff = routed_apart(pools["cuda"], pools["cpu"])
+    log("train", f"TF32 trap: parity() step of googlenet_detectnet B=2 "
+        f"{NET}x{NET} on the card and the cpu with TF32 allowed by the "
+        f"caller, the caller's flags restored after it: loss "
+        f"{gpu_loss:.6f} vs {cpu_loss:.6f} (rel {rel:.3g}, limit "
+        f"{PARITY_LOSS_RTOL:g}); on the card equal to TF32 off globally, "
+        f"{tf32_loss:.6f} with TF32 on and no scope "
+        f"(rel {abs(tf32_loss - gpu_loss) / abs(gpu_loss):.3g}); "
+        f"gradients vs TF32 off on the card at most {read['card']:.3g} of "
+        f"scale (limit {PARITY_CARD_GRAD_RTOL:g}, the control with its "
+        f"backward in TF32 {ctrl['card']:.3g}); gradients vs the cpu, "
+        f"median entry {read['cpu']:.3g} of scale in the median weight "
+        f"tensor (limit {PARITY_CPU_GRAD_MEDIAN:g}, control "
+        f"{ctrl['cpu']:.3g}), max|diff| up to {worst(gpu, cpu):.3g} of "
+        f"scale; updated parameters, the smallest share within "
+        f"{PARITY_PARAM_LR_FRACTION:g} lr {read['params']:.4f} (limit "
+        f"{PARITY_PARAM_SHARE:g}, control {ctrl['params']:.4f}); max pools "
+        f"but the LRN one: {apart} of {windows} windows routed apart "
+        f"between the card and the cpu, top-two gaps up to {gap:.3g} of "
+        f"scale, those pools' inputs apart by {diff:.3g} of scale or more "
+        f"between the devices")
+
+
+def train_run(trainer, batch, counters, card: str, what: str) -> dict:
+    """TRAIN_WARMUP + TRAIN_STEPS steps of ``trainer`` on one fixed batch,
+    counted; then PROFILED_STEPS more under torch.profiler.  Returns the
+    state and the run's numbers."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from torchfcn.serve.profile import device_rows, range_device_us
+    state = trainer.init_state()
+    b = trainer.put(batch)
+    for fn in counters.values():
+        fn.launches = 0
+    losses = []
+    for _ in range(TRAIN_WARMUP):
+        state, metrics = trainer.step_fn(state, b)
+        trainer.logger.update(state.step, metrics, len(batch["image"]))
+        losses.append(metrics["loss_total"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        state, metrics = trainer.step_fn(state, b)
+        trainer.logger.update(state.step, metrics, len(batch["image"]))
+        losses.append(metrics["loss_total"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    losses = [float(v) for v in losses]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{what}: a non-finite loss: {losses}")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILED_STEPS):
+            state, metrics = trainer.step_fn(state, b)
+        torch.cuda.synchronize()
+    rows = device_rows(prof)
+    busy = sum(us for _, us, _ in rows) / 1e3 / PROFILED_STEPS
+    lrn_fwd = sum(us for name, us, _ in rows
+                  if "lrn_kernel" in name or "lrn_maxpool_kernel" in name
+                  ) / 1e3 / PROFILED_STEPS
+    lrn_bwd = sum(range_device_us(prof, f"torchfcn::{plain}_vjp")
+                  for plain in ("lrn_across_channels", "lrn_maxpool")
+                  ) / 1e3 / PROFILED_STEPS
+    row = dict(config=what, batch=len(batch["image"]),
+               size=batch["image"].shape[1], steps=TRAIN_STEPS,
+               steps_s=TRAIN_STEPS / seconds,
+               images_s=TRAIN_STEPS * len(batch["image"]) / seconds,
+               busy_ms_step=busy, lrn_forward_ms_step=lrn_fwd,
+               lrn_backward_ms_step=lrn_bwd,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+               loss_first=losses[0], loss_smoothed=trainer.logger
+               .smoothed_loss(), launches=launches)
+    if not row["loss_smoothed"] < row["loss_first"]:
+        raise AssertionError(f"{what}: the smoothed loss at step "
+                             f"{state.step - PROFILED_STEPS} "
+                             f"({row['loss_smoothed']}) is not below the "
+                             f"first step's ({row['loss_first']})")
+    log("train", f"{what} B={row['batch']} {row['size']}x{row['size']} "
+        f"bf16 policy: {TRAIN_STEPS} steps after {TRAIN_WARMUP} warm-up, "
+        f"{row['steps_s']:.3f} steps/s, {row['images_s']:.1f} images/s "
+        f"(host clock, one fixed batch on the card); device busy "
+        f"{busy:.3f} ms per step (torch.profiler, {PROFILED_STEPS} steps); "
+        f"peak memory {row['peak_mem_gb']:.3f} GiB; loss {losses[0]:.4f} at "
+        f"step 1, smoothed {row['loss_smoothed']:.4f} over the last 20; "
+        f"launches {launches}; on {card}")
+    top = sorted(rows, key=lambda r: -r[1])[:TRAIN_TOP]
+    log("train", f"{what}: the {TRAIN_TOP} entries with the most device "
+        f"time per step: " + "; ".join(
+            f"{us / 1e3 / PROFILED_STEPS:.3f} ms x{count / PROFILED_STEPS:g} "
+            f"{name[:60]}" for name, us, count in top))
+    return state, row
+
+
+def phase_train(rng, counters, card: str) -> list:
+    """The training path; returns its rows (the GoogLeNet row first)."""
+    import tempfile
+
+    from torchfcn import recipes
+    from torchfcn.core.config import GridConfig, TrainConfig
+    from torchfcn.serve.detector import Detector
+    from torchfcn.models import build as build_model
+    from torchfcn.serve.profile import bias_heads
+    from torchfcn.train.trainer import Trainer, load_snapshot_params
+    check_op_gradients(rng)
+    parity_step(rng)
+
+    snapdir = tempfile.mkdtemp(prefix="torchfcn_snap_")
+    cfg = TrainConfig(grid=GridConfig(NET, NET, 16, 4),
+                      model="googlenet_detectnet", snapshot_dir=snapdir,
+                      snapshot_every=0, log_every=10 ** 9)
+    trainer = Trainer(cfg, device="cuda", log_sink=lambda line: None)
+    state, row = train_run(trainer, train_batch(rng, BATCH, NET, 4),
+                           counters, card, "googlenet_detectnet")
+    steps = TRAIN_WARMUP + TRAIN_STEPS
+    for name in ("lrn", "lrn_maxpool"):
+        if row["launches"][name] != steps:
+            raise AssertionError(f"train: {name} launched "
+                                 f"{row['launches'][name]} times in {steps} "
+                                 f"steps, not once per step")
+    stem = [f"{m}.{p}" for m in ("conv1", "conv2_reduce", "conv2")
+            for p in ("weight", "bias")]
+    grads = dict(state.model.named_parameters())
+    dead = [n for n in stem if grads[n].grad is None
+            or not bool(grads[n].grad.abs().sum() > 0)]
+    if dead:
+        raise AssertionError(f"train: no gradient reached {dead}")
+    log("train", f"googlenet_detectnet: every parameter of conv1, "
+        f"conv2_reduce and conv2 has a non-zero gradient; the LRN kernels' "
+        f"forward {row['lrn_forward_ms_step']:.4f} ms per step "
+        f"({100 * row['lrn_forward_ms_step'] / row['busy_ms_step']:.2f} % "
+        f"of device busy), their plain backward (the device time inside "
+        f"the ops' backward ranges) {row['lrn_backward_ms_step']:.4f} ms "
+        f"per step "
+        f"({100 * row['lrn_backward_ms_step'] / row['busy_ms_step']:.2f} %)")
+
+    # the snapshot round trip: Trainer.save -> Detector.from_checkpoint
+    trainer.save(state)
+    saved = load_snapshot_params(snapdir)
+    step0 = build_model(cfg.model)
+    step0.init_weights(torch.Generator().manual_seed(cfg.seed))
+    step0 = dict(step0.named_parameters())
+    for name, p in state.model.named_parameters():
+        if not torch.equal(saved[name], p.detach().cpu()):
+            raise AssertionError(f"snapshot: {name} is not the trained one")
+        if torch.equal(saved[name], step0[name].detach()):
+            raise AssertionError(f"snapshot: {name} still holds its step-0 "
+                                 f"value")
+    frames = rng.integers(0, 256, (BATCH, NET, NET, 3), dtype=np.uint8)
+    loaded = Detector.from_checkpoint(snapdir, "googlenet_detectnet",
+                                      max_candidates=K, device="cuda")
+    memory = Detector("googlenet_detectnet", max_candidates=K,
+                      device="cuda")
+    memory.model.load_state_dict(state.model.state_dict())
+    for det in (loaded, memory):
+        bias_heads(det)
+        with torch.no_grad():
+            det.model.cvg.bias.fill_(SNAPSHOT_CVG_BIAS)
+    a, b = loaded(frames), memory(frames)
+    torch.cuda.synchronize()
+    if not int(a.valid.sum()):
+        raise AssertionError("snapshot round trip: no detection to compare")
+    assert_same_result(a, b, "snapshot round trip")
+    preset = Detector.from_checkpoint(snapdir, "googlenet_detectnet_serving",
+                                      max_candidates=K, device="cuda")
+    for name, p in preset.model.named_parameters():
+        if not torch.equal(p.detach().cpu(), saved[name].to(p.dtype)):
+            raise AssertionError(f"snapshot in the serving preset: {name} "
+                                 f"is not the snapshot's")
+    res = preset(frames)
+    if not bool(torch.isfinite(res.confidence).all()):
+        raise AssertionError("snapshot in the serving preset: non-finite")
+    log("train", f"snapshot round trip: Trainer.save at step {state.step} "
+        f"holds the trained parameters, every one moved from its step-0 "
+        f"value; Detector.from_checkpoint equals the in-memory parameters "
+        f"({int(a.valid.sum())} detections with the coverage bias at "
+        f"{SNAPSHOT_CVG_BIAS:g}); the googlenet_detectnet_serving preset "
+        f"loads the same parameters and serves them")
+
+    cfg = recipes.bounding_box(snapshot_dir=snapdir, snapshot_every=0,
+                               log_every=10 ** 9)
+    trainer = Trainer(cfg, device="cuda", log_sink=lambda line: None)
+    net = cfg.grid.im_height
+    _, vgg = train_run(trainer, train_batch(rng, cfg.data.batch_size, net,
+                                            cfg.grid.num_classes),
+                       counters, card, "vgg_detectnet_train bounding_box")
+    return [row, vgg]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -881,6 +1363,7 @@ def main() -> int:
     launches["stem_tail"] = phase_serving(rng, counters, card)["stem_tail"]
     families, big = phase_families(rng, counters, card)
     rows["group_rects"].update(big)
+    train = phase_train(rng, counters, card)
 
     meta = {
         "group_rects": ("torchfcn/csrc/group_rects.cu",
@@ -891,10 +1374,14 @@ def main() -> int:
         "stem_tail": ("torchfcn/csrc/stem.cu",
                       "tpufcn/ops/pallas/stem.py:126"),
     }
+    per_step = train[0]["launches"]
     kernels = [dict(name=name, route="cuda", source=meta[name][0],
                     replaces=meta[name][1], launches=launches[name],
+                    train_launches_per_step=per_step[name] / (
+                        TRAIN_WARMUP + TRAIN_STEPS),
                     **rows[name]) for name in counters]
     print(json.dumps({"card": card, "families": families}), flush=True)
+    print(json.dumps({"card": card, "train": train}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,8 +12,9 @@ which the Detector skips.
 VGG16 without pool5; ``score_fr_6`` on conv5_3 (stride 16) -> up k32 s16 p8.
 
 Every bilinear deconvolution runs in its separable form, in float32 on
-float32 scores.  Input: demeaned + min-max BGR in [0, 1], NHWC.  Dropout is
-the identity at inference and is left out.
+float32 scores.  Input: demeaned + min-max BGR in [0, 1], NHWC.  FCN-8s
+drops pool5 out ("dropout5", rate 0.5) in train mode; FCN-32s has no
+dropout, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -22,14 +23,15 @@ from typing import Dict, Optional
 
 import torch
 
-from torchfcn.models.layers import CaffeConv, ZooModel, max_pool, nchw, nhwc
+from torchfcn.models.layers import (
+    CaffeConv, ZooModel, dropout, max_pool, nchw, nhwc)
 from torchfcn.models.vgg import VGG16Backbone
 from torchfcn.ops.caffe_layers import upsample_bilinear_separable
 
 
 def _score(conv: CaffeConv, x: torch.Tensor) -> torch.Tensor:
     """A 1x1 score conv in the compute dtype -> float32 NHWC."""
-    return nhwc(conv(x.to(conv.weight.dtype)).float())
+    return nhwc(conv(x.to(conv.dtype)).float())
 
 
 class FCN8sBBox(ZooModel):
@@ -37,8 +39,9 @@ class FCN8sBBox(ZooModel):
 
     def __init__(self, num_classes: int = 11,
                  store_dtype: Optional[torch.dtype] = None,
-                 store_stages: int = 5):
+                 store_stages: int = 5, dropout_rate: float = 0.5):
         super().__init__()
+        self.dropout_rate = dropout_rate
         c = num_classes
         self.backbone = VGG16Backbone(store_dtype=store_dtype,
                                       store_stages=store_stages)
@@ -47,9 +50,12 @@ class FCN8sBBox(ZooModel):
         self.score_pool4 = CaffeConv(512, c, 1)
         self.score_pool3 = CaffeConv(256, c, 1)
 
-    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None
+                ) -> Dict[str, torch.Tensor]:
         taps = self.backbone(nchw(x))
-        p5 = max_pool(taps["conv5_3"], 2, 2)               # stride 32
+        p5 = dropout(max_pool(taps["conv5_3"], 2, 2),      # stride 32
+                     self.dropout_rate, self.training, generator)
         # bbox branch, stride 8
         bboxes = upsample_bilinear_separable(
             _score(self.score_conv5_bbox, p5), 8, 4, 2)
@@ -76,7 +82,9 @@ class FCN32sSeg(ZooModel):
         # the Caffe layer name (its top blob is "score_fr")
         self.score_fr_6 = CaffeConv(512, num_classes, 1)
 
-    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None
+                ) -> Dict[str, torch.Tensor]:
         s = _score(self.score_fr_6, self.backbone(nchw(x))["conv5_3"])
         seg = upsample_bilinear_separable(s, 32, 16, 8)    # full resolution
         return {"seg": seg, "score": torch.softmax(seg, dim=-1)}

@@ -8,12 +8,12 @@ Structure kept from the reference deploy graph:
   (conv2/norm2) and pool2 (fused into one kernel here);
 * nine inception blocks with **no** pool between inception_4e and
   inception_5a, so the output grid has stride 16 (448x448 -> 28x28);
-* 1x1 coverage head with sigmoid and 1x1 bbox head.  Dropout (pool5/drop_s1)
-  is the identity at inference and is left out.
+* dropout pool5/drop_s1 (rate 0.4) in train mode, 1x1 coverage head with
+  sigmoid and 1x1 bbox head.
 
 conv1 is the plain stride-2 conv: the JAX package's space-to-depth form is a
 TPU lane-packing trick that ``tests/test_fast_conv.py`` pins identical to it.
-Compute runs in the parameters' dtype (bf16 for serving, float32 for parity).
+Compute runs in the convs' dtype (bf16 for serving, float32 for parity).
 
 The fp8 serving preset (``store_dtype=torch.float8_e5m2`` with
 ``store_stem2``, ``tpufcn/models/googlenet.py:161-200``) stores activations
@@ -33,7 +33,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from torchfcn.models.layers import (
-    CaffeConv, LRN, LRNMaxPool, ZooModel, max_pool, nchw, nhwc)
+    CaffeConv, LRN, LRNMaxPool, ZooModel, dropout, max_pool, nchw, nhwc)
 from torchfcn.ops.cuda.stem import stem_tail_cuda
 
 # Inception block widths: (1x1, 3x3_reduce, 3x3, 5x5_reduce, 5x5, pool_proj)
@@ -74,12 +74,12 @@ class Inception(nn.Module):
         return x if self.store_dtype is None else x.to(self.store_dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dtype = self.b1x1.weight.dtype
+        dtype = self.b1x1.dtype
         x = x.to(dtype)            # e5m2 input widens exactly
         convs = (self.b1x1, self.b3x3_reduce, self.b5x5_reduce)
         y = self._store(F.relu(F.conv2d(
-            x, torch.cat([c.weight for c in convs]),
-            torch.cat([c.bias for c in convs]))))
+            x, torch.cat([c.weight for c in convs]).to(dtype),
+            torch.cat([c.bias for c in convs]).to(dtype))))
         b1, b3, b5 = torch.split(y, self.widths, dim=1)
         b3 = self._store(F.relu(self.b3x3(b3.to(dtype))))
         b5 = self._store(F.relu(self.b5x5(b5.to(dtype))))
@@ -105,8 +105,10 @@ class GoogLeNetDetectNet(ZooModel):
 
     def __init__(self, num_classes: int = 4,
                  store_dtype: Optional[torch.dtype] = None,
-                 store_blocks: bool = False, store_stem2: bool = False):
+                 store_blocks: bool = False, store_stem2: bool = False,
+                 dropout_rate: float = 0.4):
         super().__init__()
+        self.dropout_rate = dropout_rate       # deploy.prototxt pool5/drop_s1
         if store_dtype not in (None, torch.float8_e5m2):
             raise ValueError(f"store_dtype must be None or float8_e5m2 "
                              f"(e4m3 saturates conv1), got {store_dtype}")
@@ -130,8 +132,10 @@ class GoogLeNetDetectNet(ZooModel):
         self.cvg = CaffeConv(cin, num_classes, 1)
         self.bbox = CaffeConv(cin, 4 * num_classes, 1)
 
-    def forward(self, frames: torch.Tensor) -> Dict[str, torch.Tensor]:
-        dtype = self.conv1.weight.dtype
+    def forward(self, frames: torch.Tensor,
+                generator: Optional[torch.Generator] = None
+                ) -> Dict[str, torch.Tensor]:
+        dtype = self.conv1.dtype
         store = self.store_dtype
         if store is not None and dtype != torch.bfloat16:
             raise ValueError(f"e5m2 storage computes in bfloat16, the "
@@ -158,7 +162,7 @@ class GoogLeNetDetectNet(ZooModel):
         for blk in ("4a", "4b", "4c", "4d", "4e", "5a", "5b"):
             # no pool between 4e and 5a: the stride stays 16
             x = getattr(self, f"inception_{blk}")(x)
-        x = x.to(dtype)
+        x = dropout(x.to(dtype), self.dropout_rate, self.training, generator)
         coverage = torch.sigmoid(self.cvg(x).float())
         bboxes = self.bbox(x).float()
         return {"coverage": nhwc(coverage).contiguous(),

@@ -7,12 +7,17 @@ memory), so the LRN kernels read contiguous channel rows; ``nhwc`` and
 ``ZooModel`` is the base of every model of the zoo: the seeded Caffe
 "xavier" init and the map from the port's parameter names to the leaves
 of the JAX package's Flax tree, which ``torchfcn.convert.from_jax`` loads.
+
+A conv computes in its parameters' dtype unless a ``DTypePolicy`` gave it
+a compute dtype (``torchfcn.core.dtypes``); the models read each conv's
+``dtype`` to cast activations.  ``dropout`` is the models' train-mode
+dropout.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -67,10 +72,13 @@ class CaffeConv(nn.Conv2d):
     package's ``CaffeConv``, whose Flax ``nn.Conv`` is its child "conv".
 
     Parameters start at zero; ``ZooModel.init_weights`` draws them from an
-    explicit generator, or a converter loads them.
+    explicit generator, or a converter loads them.  With a
+    ``compute_dtype`` (set by ``DTypePolicy.apply``) the weights and the
+    input are cast to it for the convolution.
     """
 
     flax_child = "conv"
+    compute_dtype: Optional[torch.dtype] = None
 
     def __init__(self, in_channels: int, out_channels: int, kernel: int,
                  stride: int = 1, pad: int = 0, bias: bool = True):
@@ -81,6 +89,16 @@ class CaffeConv(nn.Conv2d):
         nn.init.zeros_(self.weight)
         if self.bias is not None:
             nn.init.zeros_(self.bias)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """The dtype the convolution computes in."""
+        return self.compute_dtype or self.weight.dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dtype = self.dtype       # no copy where a tensor already has it
+        bias = None if self.bias is None else self.bias.to(dtype)
+        return self._conv_forward(x.to(dtype), self.weight.to(dtype), bias)
 
 
 class Conv(CaffeConv):
@@ -151,6 +169,23 @@ class ZooModel(nn.Module):
                 paths[f"{name}.{leaf}"] = path + (
                     weight if leaf == "weight" else leaf,)
         return paths
+
+
+def dropout(x: torch.Tensor, rate: float, training: bool,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout (Flax ``nn.Dropout``): in training, each value is
+    kept with probability ``1 - rate`` and scaled by ``1 / (1 - rate)``,
+    else zeroed, from uniform draws of ``generator`` (on ``x``'s device)
+    in NHWC order; the identity in eval mode or at rate 0."""
+    if not training or rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in train mode draws from an explicit "
+                         "torch.Generator: pass generator=")
+    draws = torch.rand(nhwc(x).shape, generator=generator, device=x.device)
+    keep = nchw(draws) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
+                                                           device=x.device))
 
 
 class LRN(nn.Module):

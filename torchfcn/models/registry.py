@@ -43,10 +43,11 @@ def get_spec(name: str) -> ModelSpec:
 
 
 def build(name: str, **overrides) -> nn.Module:
-    """The model with zeroed float32 parameters on the CPU.  ``overrides``
-    go to its constructor (``num_classes``, ``store_dtype``, ...) over the
-    entry's own."""
-    return get_spec(name).factory(**overrides)
+    """The model with zeroed float32 parameters on the CPU, in eval mode
+    (no dropout; ``train()`` turns it on).  ``overrides`` go to its
+    constructor (``num_classes``, ``store_dtype``, ``dropout_rate``, ...)
+    over the entry's own."""
+    return get_spec(name).factory(**overrides).eval()
 
 
 def names():

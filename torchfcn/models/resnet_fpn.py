@@ -13,7 +13,7 @@ Input: raw BGR in [0, 255], normalised to (x - 127) / 128 in float32 before
 the cast to the compute dtype (the parameters').  With ``store_dtype``
 (float8_e5m2) the stem's output and every block's output are stored in it,
 after the GroupNorm statistics; convs read them widened to the compute
-dtype.  Dropout is the identity at inference and is left out.
+dtype.  Dropout ("drop", rate 0.1) on P4 acts in train mode only.
 """
 
 from __future__ import annotations
@@ -25,7 +25,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from torchfcn.models.layers import (
-    CaffeConv, Conv, GroupNorm, ZooModel, check_store_dtype, nchw, nhwc)
+    CaffeConv, Conv, GroupNorm, ZooModel, check_store_dtype, dropout, nchw,
+    nhwc)
 
 
 def _max_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
@@ -55,7 +56,7 @@ class BasicBlock(nn.Module):
             self.down = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dtype = self.conv1.weight.dtype
+        dtype = self.conv1.dtype
         xc = x.to(dtype)
         y = F.relu(self.gn1(self.conv1(xc))).to(dtype)
         y = self.gn2(self.conv2(y))                        # float32
@@ -77,8 +78,10 @@ class ResNetFPNDetectNet(ZooModel):
                  stage_sizes: Sequence[int] = (2, 2, 2, 2),
                  widths: Sequence[int] = (64, 128, 256, 512),
                  fpn_channels: int = 256,
-                 store_dtype: Optional[torch.dtype] = None):
+                 store_dtype: Optional[torch.dtype] = None,
+                 dropout_rate: float = 0.1):
         super().__init__()
+        self.dropout_rate = dropout_rate
         check_store_dtype(store_dtype)
         self.store_dtype = store_dtype
         self.stem_conv = Conv(3, 64, 7, 2, 3)
@@ -101,8 +104,10 @@ class ResNetFPNDetectNet(ZooModel):
         self.cvg = CaffeConv(f, num_classes, 1)
         self.bbox = CaffeConv(f, 4 * num_classes, 1)
 
-    def forward(self, frames: torch.Tensor) -> Dict[str, torch.Tensor]:
-        dtype = self.stem_conv.weight.dtype
+    def forward(self, frames: torch.Tensor,
+                generator: Optional[torch.Generator] = None
+                ) -> Dict[str, torch.Tensor]:
+        dtype = self.stem_conv.dtype
         x = nchw(((frames.to(torch.float32) - 127.0) / 128.0).to(dtype))
         y = F.relu(self.stem_gn(self.stem_conv(x))).to(dtype)
         if self.store_dtype is not None:
@@ -118,6 +123,7 @@ class ResNetFPNDetectNet(ZooModel):
         p5 = nhwc(self.lat5(c5.to(dtype)))
         up5 = nchw(p5.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2))
         p4 = F.relu(self.smooth4(self.lat4(c4.to(dtype)) + up5))
+        p4 = dropout(p4, self.dropout_rate, self.training, generator)
         coverage = torch.sigmoid(self.cvg(p4).float())
         bboxes = self.bbox(p4).float()
         return {"coverage": nhwc(coverage).contiguous(),

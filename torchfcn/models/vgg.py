@@ -10,8 +10,8 @@
   up2, up4, up7], heads at stride 16.  conv5_3 has no ReLU in this net.
 
 Input: demeaned + min-max BGR in [0, 1] (``torchfcn.ops.image.demean_bgr``),
-NHWC.  Dropout is the identity at inference and is left out.  Compute runs
-in the parameters' dtype.
+NHWC.  Dropout ("dropout5", rate 0.5) before the heads acts in train mode
+only.  Compute runs in the convs' dtype.
 
 With ``store_dtype`` (float8_e5m2) the conv outputs of the backbone stages
 up to ``store_stages`` are stored in it; max pools run through bf16 and stay
@@ -29,8 +29,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from torchfcn.models.layers import (
-    CaffeConv, ZooModel, avg_pool, check_store_dtype, max_pool, nchw, nhwc,
-    upsample_factor)
+    CaffeConv, ZooModel, avg_pool, check_store_dtype, dropout, max_pool, nchw,
+    nhwc, upsample_factor)
 
 # VGG16 conv stack: (stage, n_convs, width)
 VGG_STAGES = ((1, 2, 64), (2, 2, 128), (3, 3, 256), (4, 3, 512), (5, 3, 512))
@@ -60,7 +60,7 @@ class VGG16Backbone(nn.Module):
                 cin = width
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
-        dtype = self.conv1_1.weight.dtype
+        dtype = self.conv1_1.dtype
         taps = {}
         for stage, n_convs, _ in VGG_STAGES:
             for i in range(1, n_convs + 1):
@@ -83,7 +83,7 @@ class _Heads(ZooModel):
     FLAX_NAMES = HEAD_NAMES
 
     def _heads(self, y: torch.Tensor) -> Dict[str, torch.Tensor]:
-        y = y.to(self.cvg.weight.dtype)
+        y = y.to(self.cvg.dtype)
         coverage = torch.sigmoid(self.cvg(y).float())
         bboxes = self.bbox(y).float()
         return {"coverage": nhwc(coverage).contiguous(),
@@ -95,17 +95,22 @@ class VGGDetectNet(_Heads):
 
     def __init__(self, num_classes: int = 11,
                  store_dtype: Optional[torch.dtype] = None,
-                 store_stages: int = 5):
+                 store_stages: int = 5, dropout_rate: float = 0.5):
         super().__init__()
+        self.dropout_rate = dropout_rate
         self.backbone = VGG16Backbone(store_dtype=store_dtype,
                                       store_stages=store_stages)
         self.cvg = CaffeConv(512, num_classes, 1)
         self.bbox = CaffeConv(512, 4 * num_classes, 1)
 
-    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
-        dtype = self.cvg.weight.dtype
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None
+                ) -> Dict[str, torch.Tensor]:
+        dtype = self.cvg.dtype
         y = self.backbone(nchw(x))["conv5_3"]              # stride 16
-        return self._heads(upsample_factor(y.to(dtype), 2))  # stride 8
+        y = upsample_factor(y.to(dtype), 2)                # stride 8
+        return self._heads(dropout(y, self.dropout_rate, self.training,
+                                   generator))
 
 
 class VGGPyramidDetectNet(_Heads):
@@ -117,8 +122,9 @@ class VGGPyramidDetectNet(_Heads):
 
     def __init__(self, num_classes: int = 20,
                  store_dtype: Optional[torch.dtype] = None,
-                 store_stages: int = 5):
+                 store_stages: int = 5, dropout_rate: float = 0.5):
         super().__init__()
+        self.dropout_rate = dropout_rate
         self.backbone = VGG16Backbone(relu5_3=False, store_dtype=store_dtype,
                                       store_stages=store_stages)
         for bins in PYRAMID_BINS:
@@ -127,8 +133,10 @@ class VGGPyramidDetectNet(_Heads):
         self.cvg = CaffeConv(width, num_classes, 1)
         self.bbox = CaffeConv(width, 4 * num_classes, 1)
 
-    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
-        dtype = self.cvg.weight.dtype
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None
+                ) -> Dict[str, torch.Tensor]:
+        dtype = self.cvg.dtype
         taps = self.backbone(nchw(x))
         c43 = taps["conv4_3"]                          # stride 8
         s = c43.shape[-2]
@@ -148,4 +156,5 @@ class VGGPyramidDetectNet(_Heads):
             else dtype
         y = torch.cat([t.to(cat_dtype) for t in
                        [taps["conv5_3"], taps["pool4"]] + pyramid], dim=1)
-        return self._heads(y)
+        return self._heads(dropout(y, self.dropout_rate, self.training,
+                                   generator))

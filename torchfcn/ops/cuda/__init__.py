@@ -1,6 +1,8 @@
 """Wrappers of the port's hand-written CUDA kernels (``torchfcn/csrc``).
 
-Each wrapper takes its kernel's plain PyTorch version for CPU tensors,
-launches the kernel for CUDA tensors, and raises for anything else.  Each
-keeps a count of its kernel launches in its ``launches`` attribute.
+Each wrapper calls a custom op (``torch.ops.torchfcn``) whose CPU
+implementation is the kernel's plain PyTorch version and whose CUDA
+implementation launches the kernel; a tensor on another device finds no
+implementation and raises.  Each wrapper keeps a count of its kernel
+launches in its ``launches`` attribute.
 """

@@ -136,8 +136,10 @@ def launch(name: str, device: torch.device, *args) -> None:
         raise RuntimeError(f"{name}: CUDA error {status} ({msg})")
 
 
-def require_cuda(t: torch.Tensor, what: str) -> None:
-    """Raise unless ``t`` is on a CUDA device (the kernels' only device)."""
-    if t.device.type != "cuda":
+def check_device(t: torch.Tensor, what: str) -> None:
+    """Raise unless ``t`` is on the CPU (the plain version) or a CUDA
+    device (the kernel).  A wrapper checks before it calls its op, whose
+    fake implementation would otherwise answer for a meta tensor."""
+    if t.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{what}: expected a CPU or CUDA tensor, got one on "
                          f"{t.device}")

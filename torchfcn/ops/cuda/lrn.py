@@ -4,6 +4,12 @@ Counterpart of ``tpufcn/ops/pallas/lrn.py::lrn_pallas``.  The plain version
 is ``torchfcn.ops.caffe_layers.lrn_across_channels``.  The kernel's
 instance (``vector_instance``, shared with ``lrn_pool.py``) and geometry
 (``lrn_plan``) are chosen here and checked again by the kernel.
+
+The wrapper calls the custom op ``torchfcn::lrn``: the kernel on a CUDA
+tensor, the plain version on a CPU tensor, a fake implementation for
+tracing, and a backward that is the vector-Jacobian product of the plain
+version, recomputed from the saved input (no Pallas kernel had a backward;
+the JAX package trains through XLA's LRN).
 """
 
 from __future__ import annotations
@@ -64,7 +70,6 @@ def lrn_plan(pixels: int, channels: int, itemsize: int, vector: bool,
 
 def check_lrn_input(x: torch.Tensor, size: int, what: str) -> None:
     """Raise on what the LRN kernels do not take."""
-    build.require_cuda(x, what)
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{what}: takes float32 or bfloat16, got {x.dtype}")
     if x.dim() == 0 or not x.is_contiguous():
@@ -74,12 +79,17 @@ def check_lrn_input(x: torch.Tensor, size: int, what: str) -> None:
         raise ValueError(f"{what}: size must be odd and positive, got {size}")
 
 
-def lrn_cuda(x: torch.Tensor, size: int = 5, alpha: float = 1e-4,
-             k: float = 1.0) -> torch.Tensor:
-    """LRN (beta 0.75) over the last (channel) axis of a channels-last
-    tensor."""
-    if x.device.type == "cpu":
-        return lrn_across_channels(x, size, alpha, k)
+@torch.library.custom_op("torchfcn::lrn", mutates_args=(),
+                         device_types="cpu")
+def lrn_op(x: torch.Tensor, size: int, alpha: float,
+           k: float) -> torch.Tensor:
+    """The plain version on a CPU tensor."""
+    return lrn_across_channels(x, size, alpha, k)
+
+
+@lrn_op.register_kernel("cuda")
+def _lrn_kernel(x: torch.Tensor, size: int, alpha: float,
+                k: float) -> torch.Tensor:
     check_lrn_input(x, size, "lrn_cuda")
     y = torch.empty_like(x)
     if x.numel() == 0:
@@ -93,6 +103,43 @@ def lrn_cuda(x: torch.Tensor, size: int = 5, alpha: float = 1e-4,
                  build.DTYPE_CODES[x.dtype], int(vector), tile, blocks, smem)
     lrn_cuda.launches += 1
     return y
+
+
+@lrn_op.register_fake
+def _lrn_fake(x, size, alpha, k):
+    return torch.empty_like(x)
+
+
+def plain_vjp(plain, ctx, grad: torch.Tensor):
+    """The input's gradient: the vector-Jacobian product of ``plain``
+    (taking the input and ``ctx.args``) at the saved input, inside a
+    profiler range ``torchfcn::<plain>_vjp`` that reads its device time
+    (``torchfcn.serve.profile.range_device_us``)."""
+    x, = ctx.saved_tensors
+    with torch.profiler.record_function(f"torchfcn::{plain.__name__}_vjp"):
+        _, vjp = torch.func.vjp(lambda t: plain(t, *ctx.args), x)
+        return vjp(grad)[0]
+
+
+def save_input(ctx, inputs, output) -> None:
+    ctx.save_for_backward(inputs[0])
+    ctx.args = inputs[1:]
+
+
+def _lrn_backward(ctx, grad):
+    return (plain_vjp(lrn_across_channels, ctx, grad),) + (None,) * 3
+
+
+lrn_op.register_autograd(_lrn_backward, setup_context=save_input)
+
+
+def lrn_cuda(x: torch.Tensor, size: int = 5, alpha: float = 1e-4,
+             k: float = 1.0) -> torch.Tensor:
+    """LRN (beta 0.75) over the last (channel) axis of a channels-last
+    tensor: the kernel on a CUDA tensor, the plain version on a CPU one;
+    differentiable on both."""
+    build.check_device(x, "lrn_cuda")
+    return lrn_op(x, size, alpha, k)
 
 
 lrn_cuda.launches = 0

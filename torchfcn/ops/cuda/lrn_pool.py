@@ -2,9 +2,10 @@
 ``csrc/lrn.cu`` (``torchfcn_lrn_maxpool``).
 
 Counterpart of ``tpufcn/ops/pallas/lrn_pool.py::lrn_maxpool_pallas``.  The
-plain version is ``max_pool_caffe(lrn_across_channels(x), 3, 2)``.  The
-kernel's geometry (``lrn_maxpool_plan``) is computed here and checked again
-by the kernel.
+plain version is ``lrn_maxpool`` below.  The kernel's geometry
+(``lrn_maxpool_plan``) is computed here and checked again by the kernel.
+The wrapper calls the custom op ``torchfcn::lrn_maxpool``, whose backward
+is the vector-Jacobian product of the plain version, as ``lrn.py``'s.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from torchfcn.ops.cuda import build
 from torchfcn.ops.cuda.geometry import (
     SHARED_BYTES_MAX, blocks_fit, sm_count, stripe_plan)
 from torchfcn.ops.cuda.lrn import (
-    HEADER_BYTES, check_lrn_input, vector_instance)
+    HEADER_BYTES, check_lrn_input, plain_vjp, save_input, vector_instance)
 
 POOL_SLOTS = 2             # csrc/lrn.cu kPoolSlots
 POOL_BLOCKS_PER_SM = 2     # blocks the plan fills on each SM
@@ -82,12 +83,27 @@ def lrn_maxpool_plan(batch: int, h: int, w: int, channels: int,
     return best[1]
 
 
-def lrn_maxpool_cuda(x: torch.Tensor, size: int = 5,
-                     alpha: float = 1e-4) -> torch.Tensor:
-    """LRN (beta 0.75, k 1) then the 3x3/2 ceil-mode max pool:
-    (B, H, W, C) NHWC -> (B, ceil((H-3)/2)+1, ceil((W-3)/2)+1, C)."""
-    if x.device.type == "cpu":
-        return max_pool_caffe(lrn_across_channels(x, size, alpha), 3, 2)
+def lrn_maxpool(x: torch.Tensor, size: int = 5,
+                alpha: float = 1e-4) -> torch.Tensor:
+    """The plain version: LRN (k 1) then the 3x3/2 ceil-mode max pool."""
+    return max_pool_caffe(lrn_across_channels(x, size, alpha), 3, 2)
+
+
+@torch.library.custom_op("torchfcn::lrn_maxpool", mutates_args=(),
+                         device_types="cpu")
+def lrn_maxpool_op(x: torch.Tensor, size: int, alpha: float) -> torch.Tensor:
+    """The plain version on a CPU tensor."""
+    return lrn_maxpool(x, size, alpha).contiguous()
+
+
+def _pooled_shape(x: torch.Tensor):
+    b, h, w, c = x.shape
+    return b, pooled_size(h, 3, 2), pooled_size(w, 3, 2), c
+
+
+@lrn_maxpool_op.register_kernel("cuda")
+def _lrn_maxpool_kernel(x: torch.Tensor, size: int,
+                        alpha: float) -> torch.Tensor:
     check_lrn_input(x, size, "lrn_maxpool_cuda")
     if x.dim() != 4:
         raise ValueError(f"lrn_maxpool_cuda: need NHWC, got {tuple(x.shape)}")
@@ -95,7 +111,7 @@ def lrn_maxpool_cuda(x: torch.Tensor, size: int = 5,
     if h < 3 or w < 3:
         raise ValueError(f"lrn_maxpool_cuda: the 3x3 pool needs H, W >= 3, "
                          f"got {h}x{w}")
-    ho, wo = pooled_size(h, 3, 2), pooled_size(w, 3, 2)
+    _, ho, wo, _ = _pooled_shape(x)
     y = torch.empty((b, ho, wo, c), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
@@ -108,6 +124,29 @@ def lrn_maxpool_cuda(x: torch.Tensor, size: int = 5,
                  tiles, smem)
     lrn_maxpool_cuda.launches += 1
     return y
+
+
+@lrn_maxpool_op.register_fake
+def _lrn_maxpool_fake(x, size, alpha):
+    return x.new_empty(_pooled_shape(x))
+
+
+def _lrn_maxpool_backward(ctx, grad):
+    return plain_vjp(lrn_maxpool, ctx, grad), None, None
+
+
+lrn_maxpool_op.register_autograd(_lrn_maxpool_backward,
+                                 setup_context=save_input)
+
+
+def lrn_maxpool_cuda(x: torch.Tensor, size: int = 5,
+                     alpha: float = 1e-4) -> torch.Tensor:
+    """LRN (beta 0.75, k 1) then the 3x3/2 ceil-mode max pool:
+    (B, H, W, C) NHWC -> (B, ceil((H-3)/2)+1, ceil((W-3)/2)+1, C); the
+    kernel on a CUDA tensor, the plain version on a CPU one; differentiable
+    on both."""
+    build.check_device(x, "lrn_maxpool_cuda")
+    return lrn_maxpool_op(x, size, alpha)
 
 
 lrn_maxpool_cuda.launches = 0

@@ -6,6 +6,12 @@ version is ``torchfcn.ops.stem.stem_tail``.  The kernel's geometry is
 computed here and checked again by the kernel: ``shared_bytes`` (one
 block's shared memory) and ``geometry.stripe_plan`` (which pool rows each
 block walks).
+
+The wrapper calls the custom op ``torchfcn::stem_tail`` (kernel on a CUDA
+tensor, plain version on a CPU one, a fake implementation for tracing).
+It has no backward: the stem tail serves the e5m2 preset, which the JAX
+package refuses to train, so the wrapper raises when an input needs a
+gradient.
 """
 
 from __future__ import annotations
@@ -40,18 +46,19 @@ def shared_bytes(w: int) -> int:
     return (ring + taps + CMID * CIN + stage + pooled) * 2 + (CMID + COUT) * 4
 
 
-def stem_tail_cuda(x: torch.Tensor, wr: torch.Tensor, br: torch.Tensor,
-                   w2: torch.Tensor, b2: torch.Tensor,
-                   store_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """LRN1 -> conv2_reduce 1x1 + ReLU -> conv2 3x3 + ReLU -> LRN2 -> 3x3/2
-    ceil pool on (B, H, W, 64) NHWC; returns (B, Ho, Wo, 192) in
-    ``store_dtype`` (bf16 when None).  Weights in OIHW: ``wr`` (64, 64, 1,
-    1), ``w2`` (192, 64, 3, 3).  On the card ``x`` must already be in the
-    storage type: bf16, or e5m2 for ``store_dtype=torch.float8_e5m2``, with
-    3 <= W <= 128."""
-    if x.device.type == "cpu":
-        return stem_tail(x, wr, br, w2, b2, store_dtype)
-    build.require_cuda(x, "stem_tail_cuda")
+@torch.library.custom_op("torchfcn::stem_tail", mutates_args=(),
+                         device_types="cpu")
+def stem_tail_op(x: torch.Tensor, wr: torch.Tensor, br: torch.Tensor,
+                 w2: torch.Tensor, b2: torch.Tensor,
+                 store_dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """The plain version on a CPU tensor."""
+    return stem_tail(x, wr, br, w2, b2, store_dtype)
+
+
+@stem_tail_op.register_kernel("cuda")
+def _stem_tail_kernel(x: torch.Tensor, wr: torch.Tensor, br: torch.Tensor,
+                      w2: torch.Tensor, b2: torch.Tensor,
+                      store_dtype: Optional[torch.dtype]) -> torch.Tensor:
     storage = check_inputs(x, wr, br, w2, b2, store_dtype)
     b, h, w, _ = x.shape
     smem = shared_bytes(w)
@@ -72,6 +79,33 @@ def stem_tail_cuda(x: torch.Tensor, wr: torch.Tensor, br: torch.Tensor,
                  stripes, smem, build.DTYPE_CODES[storage])
     stem_tail_cuda.launches += 1
     return y
+
+
+@stem_tail_op.register_fake
+def _stem_tail_fake(x, wr, br, w2, b2, store_dtype):
+    b, h, w, _ = x.shape
+    return x.new_empty((b, pooled_size(h, 3, 2), pooled_size(w, 3, 2), COUT),
+                       dtype=store_dtype or torch.bfloat16)
+
+
+def stem_tail_cuda(x: torch.Tensor, wr: torch.Tensor, br: torch.Tensor,
+                   w2: torch.Tensor, b2: torch.Tensor,
+                   store_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """LRN1 -> conv2_reduce 1x1 + ReLU -> conv2 3x3 + ReLU -> LRN2 -> 3x3/2
+    ceil pool on (B, H, W, 64) NHWC; returns (B, Ho, Wo, 192) in
+    ``store_dtype`` (bf16 when None).  Weights in OIHW: ``wr`` (64, 64, 1,
+    1), ``w2`` (192, 64, 3, 3).  On the card ``x`` must already be in the
+    storage type: bf16, or e5m2 for ``store_dtype=torch.float8_e5m2``, with
+    3 <= W <= 128.  Raises if an input needs a gradient: the stem tail is
+    serving-only."""
+    build.check_device(x, "stem_tail_cuda")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, wr, br, w2, b2)):
+        raise RuntimeError(
+            "stem_tail_cuda has no backward: the fused stem tail serves the "
+            "e5m2 preset only; train the exact model (e.g. "
+            "googlenet_detectnet), whose snapshots load into the preset")
+    return stem_tail_op(x, wr, br, w2, b2, store_dtype)
 
 
 stem_tail_cuda.launches = 0

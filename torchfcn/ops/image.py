@@ -10,8 +10,8 @@ default ``antialias=True``:
 half-pixel sample positions and a triangle kernel that widens by the
 downscale factor, so a downscale averages every input pixel it covers.  It
 separates into one weight matrix per axis, applied here as two float32
-matmuls (H, then W).  On a GPU these are full float32 as long as
-``torch.backends.cuda.matmul.allow_tf32`` stays at its default, False.
+matmuls (H, then W), with TF32 off whatever the caller's settings
+(``jax.image.resize`` computes at HIGHEST precision).
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ from typing import Tuple
 import torch
 
 from torchfcn.core.config import IMAGENET_BGR_MEAN
+from torchfcn.core.dtypes import float32_exact
 
 
 def demean_bgr(img: torch.Tensor) -> torch.Tensor:
@@ -66,12 +67,13 @@ def resize_bilinear(img: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
     h, w = size
     x = img.to(torch.float32)
     in_h, in_w = x.shape[-3], x.shape[-2]
-    if in_h != h:
-        x = torch.einsum("...hwc,hy->...ywc", x,
-                         resize_weights(in_h, h, x.device))
-    if in_w != w:
-        x = torch.einsum("...ywc,wx->...yxc", x,
-                         resize_weights(in_w, w, x.device))
+    with float32_exact():
+        if in_h != h:
+            x = torch.einsum("...hwc,hy->...ywc", x,
+                             resize_weights(in_h, h, x.device))
+        if in_w != w:
+            x = torch.einsum("...ywc,wx->...yxc", x,
+                             resize_weights(in_w, w, x.device))
     return x
 
 

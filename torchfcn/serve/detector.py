@@ -19,7 +19,10 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from torchfcn.convert import resolve_weights
 from torchfcn.core.config import DetectorConfig
+from torchfcn.core.device import port_device
+from torchfcn.core.dtypes import DTypePolicy
 from torchfcn.models import build as build_model, get_spec
 from torchfcn.ops.grid_codec import decode_gridboxes
 from torchfcn.ops.group_rects import vote_boxes_batched
@@ -96,22 +99,27 @@ class DetectionResult(NamedTuple):
         return out
 
 
+def serving_policy(dtype: torch.dtype,
+                   policy: Optional[DTypePolicy]) -> DTypePolicy:
+    """``policy``, or by default the whole model in ``dtype``."""
+    return policy or DTypePolicy(param_dtype=dtype, compute_dtype=dtype)
+
+
 def serving_model(model_name: str, dtype: torch.dtype, rng_seed: int,
-                  model_kwargs: Optional[dict], device) -> nn.Module:
+                  model_kwargs: Optional[dict], device,
+                  policy: Optional[DTypePolicy] = None,
+                  weights: Optional[str] = None) -> nn.Module:
     """The zoo model ``model_name`` built with ``model_kwargs``, seeded
-    Caffe "xavier" weights from ``rng_seed``, in ``dtype`` and
-    ``channels_last`` on ``device`` ("cuda", which raises without CUDA, or
-    "cpu"), in eval mode."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"{model_name} on device='cuda' needs a CUDA "
-                           f"device; pass device='cpu' to run on the CPU")
-    if device.type not in ("cpu", "cuda"):
-        raise ValueError(f"the port runs on 'cuda' or 'cpu', got {device}")
+    Caffe "xavier" weights from ``rng_seed`` or ``weights``
+    (``torchfcn.convert.resolve_weights``), under ``policy`` (by default
+    parameters and compute in ``dtype``), ``channels_last`` on ``device``
+    ("cuda", which raises without CUDA, or "cpu"), in eval mode."""
+    device = port_device(device, model_name)
     model = build_model(model_name, **(model_kwargs or {}))
     model.init_weights(torch.Generator().manual_seed(rng_seed))
-    return model.to(device=device, dtype=dtype,
-                    memory_format=torch.channels_last).eval()
+    resolve_weights(weights, model)
+    serving_policy(dtype, policy).apply(model)
+    return model.to(device=device, memory_format=torch.channels_last)
 
 
 class Detector:
@@ -122,9 +130,14 @@ class Detector:
         result = det(frames_u8)   # (B, H, W, 3) BGR, boxes in frame coords
 
     ``device`` defaults to "cuda" and raises if CUDA is absent; pass
-    "cpu" to run the plain versions of the kernels.  Weights are the seeded
-    Caffe "xavier" init (``rng_seed``) until loaded, e.g. with
-    ``torchfcn.convert.from_jax.load_jax_params(det.model, tree)``.
+    "cpu" to run the plain versions of the kernels.  The model's parameters
+    and convolutions are in ``dtype`` (bf16 for serving), unless a
+    ``policy`` (``torchfcn.core.dtypes.DTypePolicy``) replaces it; a float32
+    model runs with TF32 off.  Weights are the seeded Caffe "xavier" init
+    (``rng_seed``), or ``weights`` (a ``.caffemodel`` or a Trainer
+    snapshot directory; see also ``from_checkpoint``), or loaded later,
+    e.g. with ``torchfcn.convert.from_jax.load_jax_params(det.model,
+    tree)``.
     ``model_kwargs`` go to the model's constructor (e.g.
     ``{"store_dtype": torch.float8_e5m2}``); a ``num_classes`` there also
     sets the decode grid's.  The NMS kernel takes at most
@@ -138,13 +151,16 @@ class Detector:
                  max_candidates: Optional[int] = None,
                  rng_seed: int = 0,
                  model_kwargs: Optional[dict] = None,
-                 device="cuda"):
+                 device="cuda",
+                 policy: Optional[DTypePolicy] = None,
+                 weights: Optional[str] = None):
         self.spec = get_spec(model_name)
         if "coverage" not in self.spec.heads:
             raise ValueError(f"{model_name} has no detection heads; serve "
                              f"it with torchfcn.serve.segment.Segmenter")
+        self.policy = serving_policy(dtype, policy)
         self.model = serving_model(model_name, dtype, rng_seed, model_kwargs,
-                                   device)
+                                   device, self.policy, weights)
         self.device = torch.device(device)
         grid = self.spec.grid
         if model_kwargs and "num_classes" in model_kwargs:
@@ -203,5 +219,18 @@ class Detector:
         if frames.dim() != 4 or frames.shape[-1] != 3:
             raise ValueError(f"frames must be (B, H, W, 3), got "
                              f"{tuple(frames.shape)}")
-        coverage, bboxes = self._forward(frames)
+        with self.policy.precision():
+            coverage, bboxes = self._forward(frames)
         return self._decode_nms(coverage, bboxes, tuple(frames.shape[1:3]))
+
+    @classmethod
+    def from_checkpoint(cls, snapshot_dir: str,
+                        model_name: str = "googlenet_detectnet",
+                        step: Optional[int] = None, **kwargs) -> "Detector":
+        """A Detector with the parameters of a Trainer snapshot (the latest,
+        or ``step``).  A snapshot of an exact net loads into its
+        ``_serving`` preset too: the presets share the parameters."""
+        from torchfcn.train.trainer import load_snapshot_params
+        det = cls(model_name, **kwargs)
+        det.model.load_state_dict(load_snapshot_params(snapshot_dir, step))
+        return det

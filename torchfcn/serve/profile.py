@@ -53,15 +53,33 @@ def bias_heads(det) -> None:
 
 def device_rows(prof) -> list:
     """(name, device self time in µs, count) of every kernel and copy that
-    ``prof`` (a finished ``torch.profiler.profile``) saw on the device."""
+    ``prof`` (a finished ``torch.profiler.profile``) saw on the device.
+    A ``record_function`` range (such as ``Optimizer.step``) also shows on
+    the device, spanning kernels counted already: it is left out."""
     rows = []
     for event in prof.key_averages():
         us = getattr(event, "self_device_time_total", None)
         if us is None:
             us = getattr(event, "self_cuda_time_total", 0.0)
-        if us > 0 and event.device_type == torch.autograd.DeviceType.CUDA:
+        if us > 0 and event.device_type == torch.autograd.DeviceType.CUDA \
+                and not getattr(event, "is_user_annotation", False):
             rows.append((event.key, float(us), event.count))
     return rows
+
+
+def range_device_us(prof, prefix: str) -> float:
+    """Device time in µs of the kernels and copies launched inside the
+    ``record_function`` ranges of ``prof`` whose names start with
+    ``prefix``, however deep below the range they were launched."""
+    total = 0.0
+    for event in prof.key_averages():
+        if event.key.startswith(prefix) \
+                and event.device_type == torch.autograd.DeviceType.CPU:
+            us = getattr(event, "device_time_total", None)
+            if us is None:
+                us = getattr(event, "cuda_time_total", 0.0)
+            total += float(us)
+    return total
 
 
 def serving_path(model: str):

@@ -13,9 +13,12 @@ from __future__ import annotations
 
 import torch
 
+from typing import Optional
+
+from torchfcn.core.dtypes import DTypePolicy
 from torchfcn.models import get_spec
 from torchfcn.ops.image import demean_bgr
-from torchfcn.serve.detector import serving_model
+from torchfcn.serve.detector import serving_model, serving_policy
 
 
 class Segmenter:
@@ -26,19 +29,33 @@ class Segmenter:
         labels = seg(frames_u8)   # (B, H, W, 3) BGR -> (B, H, W) int64
 
     ``device`` defaults to "cuda" and raises if CUDA is absent; pass "cpu"
-    to run on the CPU.  Weights are the seeded Caffe "xavier" init
-    (``rng_seed``) until loaded with
+    to run on the CPU.  ``dtype``, ``policy`` and ``weights`` as for the
+    Detector; weights are otherwise the seeded Caffe "xavier" init
+    (``rng_seed``) until loaded, e.g. with
     ``torchfcn.convert.from_jax.load_jax_params(seg.model, tree)``.
     """
 
     def __init__(self, model_name: str = "fcn32s_seg",
                  dtype: torch.dtype = torch.bfloat16, rng_seed: int = 0,
-                 device="cuda"):
+                 device="cuda", policy: Optional[DTypePolicy] = None,
+                 weights: Optional[str] = None):
         self.spec = get_spec(model_name)
         if "seg" not in self.spec.heads:
             raise ValueError(f"{model_name} has no segmentation head")
-        self.model = serving_model(model_name, dtype, rng_seed, None, device)
+        self.policy = serving_policy(dtype, policy)
+        self.model = serving_model(model_name, dtype, rng_seed, None, device,
+                                   self.policy, weights)
         self.device = torch.device(device)
+
+    @classmethod
+    def from_checkpoint(cls, snapshot_dir: str,
+                        model_name: str = "fcn32s_seg",
+                        step: Optional[int] = None, **kwargs) -> "Segmenter":
+        """A Segmenter with the parameters of a Trainer snapshot."""
+        from torchfcn.train.trainer import load_snapshot_params
+        seg = cls(model_name, **kwargs)
+        seg.model.load_state_dict(load_snapshot_params(snapshot_dir, step))
+        return seg
 
     def logits(self, frames: torch.Tensor) -> torch.Tensor:
         """(B, H, W, 3) frames -> (B, H, W, C) float32 ``seg`` logits."""
@@ -52,4 +69,5 @@ class Segmenter:
         if frames.dim() != 4 or frames.shape[-1] != 3:
             raise ValueError(f"frames must be (B, H, W, 3), got "
                              f"{tuple(frames.shape)}")
-        return torch.argmax(self.logits(frames), dim=-1)
+        with self.policy.precision():
+            return torch.argmax(self.logits(frames), dim=-1)
