@@ -95,11 +95,35 @@ plain versions are full float32.
    ``Detector.from_checkpoint`` gives the in-memory parameters' detections
    (at least one), and which the e5m2 preset loads and serves; then
    vgg_detectnet_train under the
-   bounding_box recipe (B = 32, 224x224), printed the same way.
+   bounding_box recipe (B = 32, 224x224), printed the same way;
+9. data: training from scenes composed on the card
+   (``torchfcn.data.device_compositor``) from a synthetic crop library (4
+   classes, 32 crops with box and ellipse masks, drawn with numpy) on noise
+   backgrounds.  One set of draws made on the cpu composes on the cpu and
+   on the card with the caller's TF32 on: rects, labels and valid equal,
+   seg equal but at pixels whose rendered mask lies within DATA_MASK_TOL
+   of 0.5 (counted), the float image within DATA_IMAGE_ATOL away from
+   them, and a control composed with the compositor's exact-float32 scopes
+   made no-ops beyond DATA_IMAGE_ATOL; batches of the
+   card's generator keep their invariants (rects in the frame, seg in its
+   rects, pastes' scaled IoU at most 0.05, the same seed the same batch);
+   a batch composes with no host synchronisation (sync debug mode
+   "error"); the compositor's device busy, launches and batches/s at
+   googlenet_detectnet 448x448 B = 16 and vgg_detectnet_train 224x224
+   B = 32; googlenet_detectnet B = 16 trained from the pipeline and from a
+   DeviceBatchCache of 30 batches (steps/s, images/s, device busy with the
+   compositor's share, each LRN kernel once a step), both LRN kernels held
+   against their plain versions on the B = 16 inputs of a composed step;
+   and vgg_detectnet_train 224x224 with 4 classes trained from a cache, its
+   detection_validator's held-out mAP on 64 scenes composed under another
+   seed above VAL_MAP_LIMIT after training and below it at step 0, and the
+   groupRectangles kernel held against its plain version on the trained
+   validator's candidates of one chunk.
 
 Then one JSON line of the families' numbers, one of the training runs'
-numbers, one JSON line of per-kernel numbers (with each kernel's launches
-per training step), each kernel's time beside its
+numbers, one of the data phase's, one JSON line of per-kernel numbers
+(with each kernel's launches per training step, per step fed by the
+compositor and per validation), each kernel's time beside its
 bound (``bound_ms``: the larger of the bytes it must move over 3.35 TB/s
 and its operations over the peak rate of their type, 989 TFLOP/s on the
 bf16 tensor cores, 67 TFLOP/s in float32, or 4.18e12/s on the special-
@@ -248,13 +272,15 @@ def nms_inputs(rng: np.random.Generator, device):
     return cand.contiguous().to(device), valid.contiguous().to(device)
 
 
-def check_group_rects(rects, valid, what: str, timed: bool = True) -> dict:
+def check_group_rects(rects, valid, what: str, timed: bool = True,
+                      **nms) -> dict:
     """groupRectangles kernel against its plain version on the card: exact
-    in every field; returns its numbers, both times and its bound."""
+    in every field; returns its numbers, both times and its bound.  ``nms``:
+    group_threshold and eps, where not the defaults."""
     from torchfcn.ops.cuda.group_rects import group_rectangles_cuda
     from torchfcn.ops.group_rects import group_rectangles
-    got = group_rectangles_cuda(rects, valid)
-    want = group_rectangles(rects, valid)
+    got = group_rectangles_cuda(rects, valid, **nms)
+    want = group_rectangles(rects, valid, **nms)
     torch.cuda.synchronize()
     for field in ("rects", "weights", "valid"):
         a, b = getattr(got, field), getattr(want, field)
@@ -984,6 +1010,28 @@ def recorded_max_pools(inputs: list):
         caffe_layers.F = F
 
 
+@contextlib.contextmanager
+def recorded_calls(module, name: str, calls: list):
+    """Appends the arguments, by name with the defaults filled in, of every
+    call of ``module.<name>`` inside the scope to ``calls``; the function
+    itself still runs (and counts its launches)."""
+    import inspect
+    fn = getattr(module, name)
+    signature = inspect.signature(fn)
+
+    def recording(*args, **kw):
+        bound_args = signature.bind(*args, **kw)
+        bound_args.apply_defaults()
+        calls.append(dict(bound_args.arguments))
+        return fn(*args, **kw)
+
+    setattr(module, name, recording)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
 def routed_apart(card: list, cpu: list) -> tuple:
     """(windows, windows routed to other positions, largest top-two gap of
     those over the input's scale, smallest max|diff| between the card's
@@ -1325,6 +1373,519 @@ def phase_train(rng, counters, card: str) -> list:
     return [row, vgg]
 
 
+# the data phase: a synthetic crop library of DATA_CLASSES textures, on noise
+# backgrounds; the compositor's configurations (name, net size, batch)
+DATA_CROPS, DATA_CLASSES, DATA_CROP_SIZE = 32, 4, (40, 70)
+DATA_CONFIGS = (("googlenet_detectnet", NET, 16),
+                ("vgg_detectnet_train", 224, 32))
+# card against cpu on the same draws: the float image (0..255) within
+# DATA_IMAGE_ATOL, except within DATA_REACH pixels (the blur's radius 9 and
+# the sharpen's 1) of a pixel whose rendered mask lies within DATA_MASK_TOL
+# of 0.5, where the paste's threshold may flip; seg equal except there
+DATA_IMAGE_ATOL, DATA_MASK_TOL, DATA_REACH = 2e-2, 1e-4, 10
+DATA_CPU_BATCH = 4
+# the invariants' tolerance for seg pixels outside their rects, without
+# and with the scene transforms (tests/test_device_compositor.py's)
+DATA_SEG_TOL = (2, 4)
+DATA_COST_BATCHES, DATA_PROFILED, DATA_PROFILED_STEPS = 20, 5, 2
+# GoogLeNet trained from the compositor: steps straight from the pipeline,
+# then from a DeviceBatchCache of the gates' n_cached batches
+DATA_TRAIN_STEPS, DATA_CACHE = 20, 30
+# the validation run: vgg_detectnet_train at 224x224, 4 classes, B = 16,
+# trained from scratch at lr VAL_LR from a cache of DATA_CACHE batches,
+# scored on VAL_IMAGES held-out scenes composed under another seed every
+# VAL_EVERY steps; the trained model's mAP must exceed VAL_MAP_LIMIT and the
+# step-0 model's must not.  From scratch the held-out mAP leaves 0 only
+# after 500-800 steps at lr 1e-4, hence the 1,500 steps; larger rates
+# stayed lower or fell back (PERF.md, section 6)
+VAL_STEPS, VAL_EVERY, VAL_IMAGES, VAL_BATCH = 1500, 500, 64, 16
+VAL_LR, VAL_MAP_LIMIT = 1e-4, 0.1
+# the phase's own seed: its crops and scenes do not move with the phases
+# before it
+DATA_SEED = SEED + 7
+
+
+def synth_crops(rng) -> tuple:
+    """DATA_CROPS object crops of DATA_CLASSES classes, each with its own
+    texture family (gradients, stripes, bands, a checker), class 1 with an
+    ellipse mask and the others with box masks (examples/demo.py's
+    dataset, drawn with numpy)."""
+    imgs, masks, labels = [], [], []
+    for i in range(DATA_CROPS):
+        c = i % DATA_CLASSES
+        h, w = (int(v) for v in rng.integers(*DATA_CROP_SIZE, 2))
+        gy, gx = np.mgrid[0:h, 0:w]
+        tex = (np.stack([220 - gx * 2, 60 + gy * 2,
+                         120 + ((gx + gy) % 6) * 18], -1),
+               np.stack([40 + ((gx // 4) % 2) * 170, 200 - gy, 60 + gx], -1),
+               np.stack([90 + ((gy // 3) % 2) * 140,
+                         50 + ((gx + 2 * gy) % 9) * 20, 230 - gx - gy], -1),
+               np.stack([30 + ((gx // 6 + gy // 6) % 2) * 200,
+                         150 + (gx % 3) * 30, 40 + gy], -1))[c]
+        if c == 1:
+            mask = ((gy - h / 2 + 0.5) / (h / 2 - 1)) ** 2 + \
+                ((gx - w / 2 + 0.5) / (w / 2 - 1)) ** 2 <= 1
+        else:
+            mask = np.ones((h, w), bool)
+        imgs.append(tex.clip(0, 255).astype(np.uint8))
+        masks.append(mask)
+        labels.append(c)
+    return imgs, masks, labels
+
+
+def data_pipe(lib, bgs, net: int, batch: int, seed: int, device="cuda",
+              **kw):
+    from torchfcn.core.config import DataConfig, GridConfig
+    from torchfcn.data.device_compositor import DeviceCompositePipeline
+    return DeviceCompositePipeline(
+        lib, bgs, GridConfig(net, net, 8, DATA_CLASSES),
+        DataConfig(batch_size=batch), seed=seed, device=device, **kw)
+
+
+@contextlib.contextmanager
+def caller_tf32():
+    """TF32 on for cuDNN convolutions and for matmuls, as a caller has it
+    who keeps PyTorch's cuDNN default and sets matmul precision 'high';
+    off again when the scope closes, as main() sets it."""
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        if not (torch.backends.cudnn.allow_tf32
+                and torch.backends.cuda.matmul.allow_tf32):
+            raise AssertionError("data: this PyTorch build did not take the "
+                                 "TF32 flags")
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@contextlib.contextmanager
+def compositor_scopes_removed():
+    """The compositor's exact-float32 scopes made no-ops: its products and
+    convolutions run as the caller's flags say."""
+    from torchfcn.data import device_compositor
+    exact = device_compositor.float32_exact
+    device_compositor.float32_exact = contextlib.nullcontext
+    try:
+        yield
+    finally:
+        device_compositor.float32_exact = exact
+
+
+def card_against_cpu(lib, bgs, net: int, batch: int) -> dict:
+    """One set of draws made on the cpu, composed on the cpu and on the card
+    with the caller's TF32 on; held to the DATA_* limits above.  A control
+    composes the same draws on the card with the compositor's exact-float32
+    scopes made no-ops: its float image must differ from the cpu's by more
+    than DATA_IMAGE_ATOL, or this check could not see a missing scope."""
+    import torch.nn.functional as F
+    cpu = data_pipe(lib, bgs, net, batch, SEED + 10, device="cpu")
+    card = data_pipe(lib, bgs, net, batch, SEED + 10)
+    draws = cpu.draw(batch)
+    want = cpu.compose(draws, checks=True)
+    with caller_tf32():
+        got = {k: v.cpu() for k, v in card.compose(draws.to("cuda"),
+                                                   checks=True).items()}
+        with compositor_scopes_removed():
+            control = card.compose(draws.to("cuda"), checks=True)
+            control = control["image_float"].cpu()
+    for k in ("rects", "labels", "valid"):
+        if not torch.equal(got[k], want[k]):
+            raise AssertionError(f"data: card and cpu {k} differ")
+    near = want["mask_margin"] < DATA_MASK_TOL
+    seg_off = (got["seg"] != want["seg"]) & ~near
+    reach = F.max_pool2d(near.float()[:, None], 2 * DATA_REACH + 1, 1,
+                         DATA_REACH)[:, 0] > 0
+
+    def away(image):
+        err = (image - want["image_float"]).abs()
+        return float(torch.where(reach[..., None], 0.0, err).max()), err
+
+    worst, err = away(got["image_float"])
+    control_worst, _ = away(control)
+    if int(seg_off.sum()) or not worst <= DATA_IMAGE_ATOL:
+        raise AssertionError(
+            f"data: card against cpu at {net}x{net}: {int(seg_off.sum())} "
+            f"seg pixels differ away from the mask threshold; float image "
+            f"max|diff| {worst:.3g} (atol {DATA_IMAGE_ATOL:g})")
+    if not control_worst > DATA_IMAGE_ATOL:
+        raise AssertionError(
+            f"data: the control without the exact-float32 scopes passes at "
+            f"{net}x{net} (max|diff| {control_worst:.3g}, atol "
+            f"{DATA_IMAGE_ATOL:g}): the check cannot see a missing scope")
+    row = dict(net=net, batch=batch, near_threshold_px=int(near.sum()),
+               seg_differ_px=int((got["seg"] != want["seg"]).sum()),
+               image_max_abs_err=worst,
+               image_max_abs_err_all=float(err.max()),
+               control_image_max_abs_err=control_worst,
+               u8_differ_share=float((got["image"] != want["image"])
+                                     .float().mean()))
+    log("data", f"card against cpu, {net}x{net} B={batch}, one set of draws "
+        f"made on the cpu, the caller's TF32 on: rects, labels and valid "
+        f"equal; "
+        f"{row['near_threshold_px']} pixels with a rendered mask within "
+        f"{DATA_MASK_TOL:g} of 0.5, {row['seg_differ_px']} seg pixels differ "
+        f"(all among them); float image max|diff| {worst:.3g} away from "
+        f"them (atol {DATA_IMAGE_ATOL:g}), {row['image_max_abs_err_all']:.3g} "
+        f"everywhere; uint8 images differ at "
+        f"{100 * row['u8_differ_share']:.4f} % of the values; the control "
+        f"without the compositor's exact-float32 scopes {control_worst:.3g}")
+    return row
+
+
+def seg_outside_rects(b: dict, tol: int) -> int:
+    """Seg pixels that lie in no valid rect grown by ``tol``."""
+    h, w = b["seg"].shape[1:]
+    ys = torch.arange(h, device=b["seg"].device)[None, None, :, None]
+    xs = torch.arange(w, device=b["seg"].device)[None, None, None, :]
+    x, y, rw, rh = (b["rects"][..., i][..., None, None] for i in range(4))
+    inside = (xs >= x - tol) & (xs <= x + rw + tol) & (ys >= y - tol) & \
+        (ys <= y + rh + tol) & b["valid"][..., None, None]
+    return int(((b["seg"] > 0) & ~inside.any(1)).sum())
+
+
+def check_data_invariants(lib, bgs, net: int, batch: int) -> None:
+    """Batches from the card's generator: rects in the frame, seg pixels in
+    their rects, pastes' scaled IoU at most 0.05 (transforms off), every
+    scene with a paste, the same seed giving the same batch."""
+    from torchfcn.ops.boxes import scaled_iou_xywh
+    plain = data_pipe(lib, bgs, net, batch, SEED + 20, scene_flip=False,
+                      zoom=False, photometric=False).batch(batch)
+    full = data_pipe(lib, bgs, net, batch, SEED + 21).batch(batch)
+    again = data_pipe(lib, bgs, net, batch, SEED + 21).batch(batch)
+    for k in full:
+        if not torch.equal(full[k], again[k]):
+            raise AssertionError(f"data: the same seed gave another {k}")
+    for what, b, tol in (("plain", plain, DATA_SEG_TOL[0]),
+                         ("with the transforms", full, DATA_SEG_TOL[1])):
+        r, v = b["rects"], b["valid"]
+        inside = (r[..., 0] >= 0) & (r[..., 1] >= 0) & \
+            (r[..., 0] + r[..., 2] <= net + 1e-3) & \
+            (r[..., 1] + r[..., 3] <= net + 1e-3)
+        out = seg_outside_rects(b, tol)
+        if bool((v & ~inside).any()) or out or not bool(v.any(1).all()):
+            raise AssertionError(f"data: {what}: a rect outside the frame, "
+                                 f"{out} seg pixels outside their rects, or "
+                                 f"a scene without a paste")
+    r, v = plain["rects"], plain["valid"]
+    iou = scaled_iou_xywh(r[:, :, None], r[:, None, :])
+    later = torch.triu(torch.ones(r.shape[1], r.shape[1], dtype=torch.bool,
+                                  device=r.device), 1)
+    pair = v[:, :, None] & v[:, None, :] & later
+    worst = float(torch.where(pair, iou, 0.0).max())
+    if worst > 0.05 + 1e-6:
+        raise AssertionError(f"data: pastes overlap, scaled IoU {worst}")
+    log("data", f"invariants at {net}x{net} B={batch} on the card's "
+        f"generator: rects in the frame, seg pixels within their rects "
+        f"(tolerance {DATA_SEG_TOL[0]} plain, {DATA_SEG_TOL[1]} with the "
+        f"transforms), pastes' scaled IoU at most {worst:.4f} (limit 0.05), "
+        f"{float(full['valid'].sum(1).float().mean()):.3f} boxes a scene, "
+        f"the same seed gives the same batch")
+
+
+def compositor_cost(lib, bgs, net: int, batch: int, card: str) -> dict:
+    """Device busy and kernel launches per batch (torch.profiler), batches
+    per second on the host clock (each run ending in a synchronize); the
+    first batch of a pipeline also checked for host synchronisation."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from torchfcn.serve.profile import device_rows
+    pipe = data_pipe(lib, bgs, net, batch, SEED + 30)
+    for _ in range(WARMUP):
+        pipe.batch(batch)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pipe.batch(batch)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DATA_COST_BATCHES):
+        pipe.batch(batch)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(DATA_PROFILED):
+            pipe.batch(batch)
+        torch.cuda.synchronize()
+    rows = device_rows(prof)
+    row = dict(net=net, batch=batch,
+               busy_ms=sum(us for _, us, _ in rows) / 1e3 / DATA_PROFILED,
+               launches=sum(n for _, _, n in rows) / DATA_PROFILED,
+               batches_s=DATA_COST_BATCHES / seconds,
+               host_ms=seconds / DATA_COST_BATCHES * 1e3)
+    top = sorted(rows, key=lambda r: -r[1])[:5]
+    log("data", f"compositor {net}x{net} B={batch} (S=3, T=100): no host "
+        f"synchronisation in a batch (sync debug mode 'error'); device busy "
+        f"{row['busy_ms']:.3f} ms per batch with {row['launches']:.0f} "
+        f"kernels and copies (torch.profiler, {DATA_PROFILED} batches); "
+        f"{row['batches_s']:.2f} batches/s, {row['host_ms']:.3f} ms per "
+        f"batch (host clock, {DATA_COST_BATCHES} batches) on {card}; most "
+        f"device time: " + "; ".join(
+            f"{us / 1e3 / DATA_PROFILED:.3f} ms x{n / DATA_PROFILED:g} "
+            f"{name[:50]}" for name, us, n in top))
+    return row
+
+
+def composed(pipe, batch: int):
+    """The pipeline's batches, each composed inside a "compositor" profiler
+    range."""
+    from torch.profiler import record_function
+    while True:
+        with record_function("compositor"):
+            b = pipe.batch(batch)
+        yield b
+
+
+def timed_steps(trainer, state, it, counters) -> tuple:
+    """DATA_TRAIN_STEPS steps of the Trainer from ``it`` after a warm-up
+    ``fit`` of TRAIN_WARMUP steps, counted, then DATA_PROFILED_STEPS
+    profiled; returns the state and the run's numbers."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from torchfcn.serve.profile import device_rows, range_device_us
+    state = trainer.fit(it, max_iter=state.step + TRAIN_WARMUP, state=state,
+                        resume=False)
+
+    def steps(n):
+        nonlocal state
+        for _ in range(n):
+            state, metrics = trainer.step_fn(state, trainer.put(next(it)))
+        return metrics
+
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    metrics = steps(DATA_TRAIN_STEPS)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {n: fn.launches / DATA_TRAIN_STEPS for n, fn in
+                counters.items()}
+    if not np.isfinite(float(metrics["loss_total"])):
+        raise AssertionError("data: a non-finite loss")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        steps(DATA_PROFILED_STEPS)
+        torch.cuda.synchronize()
+    busy = sum(us for _, us, _ in device_rows(prof)) / 1e3 \
+        / DATA_PROFILED_STEPS
+    comp = range_device_us(prof, "compositor") / 1e3 / DATA_PROFILED_STEPS
+    batch = trainer.cfg.data.batch_size
+    return state, dict(steps_s=DATA_TRAIN_STEPS / seconds,
+                       images_s=DATA_TRAIN_STEPS * batch / seconds,
+                       busy_ms_step=busy, compositor_ms_step=comp,
+                       launches_per_step=launches)
+
+
+def check_composed_lrn(trainer, state, it, batch: int) -> tuple:
+    """One step of the Trainer from ``it`` with the inputs of its LRN layers
+    recorded; each LRN kernel held against its plain version on the
+    recorded input, within check_lrn_outputs' bounds (phase_kernels'), and
+    its instance checked.  Returns the state and the numbers."""
+    from torchfcn.models import layers
+    from torchfcn.ops.caffe_layers import lrn_across_channels
+    from torchfcn.ops.cuda.lrn import vector_instance
+    from torchfcn.ops.cuda.lrn_pool import lrn_maxpool
+    plains = {"lrn_cuda": ("lrn", lrn_across_channels),
+              "lrn_maxpool_cuda": ("lrn_maxpool", lrn_maxpool)}
+    calls = {fn: [] for fn in plains}
+    with recorded_calls(layers, "lrn_cuda", calls["lrn_cuda"]), \
+            recorded_calls(layers, "lrn_maxpool_cuda",
+                           calls["lrn_maxpool_cuda"]):
+        state, _ = trainer.step_fn(state, trainer.put(next(it)))
+    out = {}
+    for fn, (name, plain) in plains.items():
+        if len(calls[fn]) != 1:
+            raise AssertionError(f"data: {len(calls[fn])} {name} layers ran "
+                                 f"in a composed step, not one")
+        args = dict(calls[fn][0])
+        x = args.pop("x").detach()
+        if x.shape[0] != batch or not vector_instance(x.dtype, x.shape[-1],
+                                                      x.data_ptr()):
+            raise AssertionError(f"data: {name} ran on {tuple(x.shape)} "
+                                 f"{x.dtype}, not B = {batch} in the vector "
+                                 f"instance")
+        with torch.no_grad():
+            got, want = getattr(layers, fn)(x, **args), plain(x, **args)
+        torch.cuda.synchronize()
+        what = f"{name} {tuple(x.shape)} {x.dtype} of a composed step"
+        err = check_lrn_outputs(got, want, x.dtype, what)
+        out[name] = dict(shape=list(x.shape), dtype=str(x.dtype),
+                         max_abs_err=err,
+                         bit_equal_share=float((got == want).float().mean()))
+        log("data", f"{what}: the kernel against its plain version, max|err| "
+            f"{err:.3g}, {100 * out[name]['bit_equal_share']:.4f} % "
+            f"bit-equal")
+    return state, out
+
+
+def train_from_compositor(lib, bgs, counters, card: str) -> dict:
+    """googlenet_detectnet B = 16 448x448 bf16 policy fed by the
+    compositor: straight from the pipeline, then from a cache of
+    DATA_CACHE batches; each LRN kernel must launch once a step and is
+    held against its plain version on a composed step's inputs."""
+    import tempfile
+
+    from torchfcn.core.config import DataConfig, GridConfig, TrainConfig
+    from torchfcn.data.pipeline import DeviceBatchCache
+    from torchfcn.train.trainer import Trainer
+    name, net, batch = DATA_CONFIGS[0]
+    cfg = TrainConfig(grid=GridConfig(net, net, 16, DATA_CLASSES), model=name,
+                      data=DataConfig(batch_size=batch),
+                      snapshot_dir=tempfile.mkdtemp(prefix="torchfcn_data_"),
+                      snapshot_every=0, log_every=10 ** 9)
+    trainer = Trainer(cfg, device="cuda", log_sink=lambda line: None)
+    pipe = data_pipe(lib, bgs, net, batch, SEED + 40)
+    piped_it = composed(pipe, batch)
+    state, piped = timed_steps(trainer, trainer.init_state(), piped_it,
+                               counters)
+    state, lrn_checked = check_composed_lrn(trainer, state, piped_it, batch)
+    cache = DeviceBatchCache(trainer.put, composed(pipe, batch), DATA_CACHE)
+    first = cache.batches[0]["image"]
+    if trainer.put(cache.batches[0])["image"].data_ptr() != first.data_ptr():
+        raise AssertionError("data: Trainer.put copied a batch on the card")
+    state, cached = timed_steps(trainer, state, iter(cache), counters)
+    for what, row in (("from the pipeline", piped), ("from the cache",
+                                                     cached)):
+        for k in ("lrn", "lrn_maxpool"):
+            if row["launches_per_step"][k] != 1:
+                raise AssertionError(
+                    f"data: {k} launched {row['launches_per_step'][k]} "
+                    f"times a step {what}, not once")
+        log("data", f"{name} B={batch} {net}x{net} bf16 policy trained "
+            f"{what}: {row['steps_s']:.3f} steps/s, {row['images_s']:.1f} "
+            f"images/s (host clock, {DATA_TRAIN_STEPS} steps); device busy "
+            f"{row['busy_ms_step']:.3f} ms per step, the compositor "
+            f"{row['compositor_ms_step']:.3f} ms of it "
+            f"({100 * row['compositor_ms_step'] / row['busy_ms_step']:.2f} "
+            f"%); launches per step {row['launches_per_step']}; on {card}")
+    return dict(config=name, batch=batch, size=net, from_pipeline=piped,
+                from_cache=cached, lrn_against_plain=lrn_checked)
+
+
+def validation_run(lib, counters, card: str) -> dict:
+    """vgg_detectnet_train 224x224 with 4 classes trained from a cache of
+    composed scenes, scored by detection_validator every VAL_EVERY steps;
+    the trained mAP must exceed VAL_MAP_LIMIT and the step-0 mAP must
+    not.  Then the trained model is scored once more with the NMS inputs
+    recorded, and the groupRectangles kernel is held against its plain
+    version on those of the first chunk."""
+    import tempfile
+
+    from torchfcn.core.config import DataConfig, GridConfig, TrainConfig
+    from torchfcn.data.pipeline import DeviceBatchCache
+    from torchfcn.models import build as build_model
+    from torchfcn.serve import detector as detector_module
+    from torchfcn.train.trainer import Trainer
+    from torchfcn.train.validate import detection_validator, \
+        val_set_from_compositor
+    name, net = "vgg_detectnet_train", 224
+    kwargs = {"num_classes": DATA_CLASSES}
+    rng = np.random.default_rng(SEED + 50)
+    bgs = rng.integers(0, 70, (8, net, net, 3)).astype(np.float32)
+    held = data_pipe(lib, bgs, net, VAL_BATCH, SEED + 51)
+    images, gts, _ = val_set_from_compositor(held, VAL_IMAGES)
+    validator = detection_validator(name, images, gts, model_kwargs=kwargs)
+    cfg = TrainConfig(grid=GridConfig(net, net, 8, DATA_CLASSES), model=name,
+                      data=DataConfig(batch_size=VAL_BATCH),
+                      learning_rate=VAL_LR, max_iter=VAL_STEPS,
+                      eval_every=VAL_EVERY, snapshot_every=0,
+                      snapshot_dir=tempfile.mkdtemp(prefix="torchfcn_val_"),
+                      log_every=10 ** 9)
+    trainer = Trainer(cfg, model=build_model(name, **kwargs),
+                      validator=validator, device="cuda",
+                      log_sink=lambda line: None)
+    state = trainer.init_state()
+    state.model.eval()
+    with torch.no_grad(), state.policy.precision():
+        step0 = validator(state.model)
+    state.model.train()
+    cache = DeviceBatchCache(trainer.put, iter(data_pipe(
+        lib, bgs, net, VAL_BATCH, SEED + 52)), DATA_CACHE)
+    counters["group_rects"].launches = 0
+    t0 = time.perf_counter()
+    trainer.fit(iter(cache), state=state, resume=False)
+    seconds = time.perf_counter() - t0
+    history = [{"step": h["step"], "mAP": h["val_mAP"],
+                "n_det": h["val_n_det"]} for h in trainer.logger.history
+               if "val_mAP" in h]
+    row = dict(config=name, size=net, batch=VAL_BATCH, steps=VAL_STEPS,
+               lr=VAL_LR, val_images=VAL_IMAGES,
+               n_gt=int(sum(len(g[1]) for g in gts)),
+               step0=step0, history=history, limit=VAL_MAP_LIMIT,
+               fit_s=seconds,
+               group_rects_per_validation=counters["group_rects"].launches
+               / len(history))
+    log("data", f"validation: {name} {net}x{net} {DATA_CLASSES} classes B="
+        f"{VAL_BATCH} lr {VAL_LR:g}, {VAL_STEPS} steps from a cache of "
+        f"{DATA_CACHE} composed batches in {seconds:.1f} s, scored every "
+        f"{VAL_EVERY} steps on {VAL_IMAGES} held-out scenes "
+        f"({row['n_gt']} boxes) composed under another seed: step 0 mAP "
+        f"{step0['mAP']} ({step0['n_det']} detections), then "
+        + ", ".join(f"{h['step']}: {h['mAP']} ({h['n_det']})"
+                    for h in history)
+        + f"; limit {VAL_MAP_LIMIT}; groupRectangles launched "
+        f"{row['group_rects_per_validation']:g} times a validation; on "
+        f"{card}")
+    if not step0["mAP"] < VAL_MAP_LIMIT < history[-1]["mAP"]:
+        raise AssertionError(
+            f"data: held-out mAP {step0['mAP']} at step 0 and "
+            f"{history[-1]['mAP']} after {VAL_STEPS} steps do not straddle "
+            f"the limit {VAL_MAP_LIMIT}")
+    calls = []
+    state.model.eval()
+    with recorded_calls(detector_module, "vote_boxes_batched", calls), \
+            torch.no_grad(), state.policy.precision():
+        validator(state.model)
+    nms = calls[0]
+    rects = nms["propose_boxes"].float().contiguous().clone()
+    valid = nms["valid"].contiguous().clone()
+    if not bool(valid.any()):
+        raise AssertionError("data: the trained validator's first chunk has "
+                             "no valid NMS candidate")
+    row["group_rects_against_plain"] = dict(
+        shape=list(rects.shape), valid_candidates=int(valid.sum()),
+        **check_group_rects(rects, valid, f"the trained validator's first "
+                            f"chunk ({int(valid.sum())} valid candidates)",
+                            timed=False, group_threshold=nms["group_threshold"],
+                            eps=nms["eps"]))
+    return row
+
+
+def phase_data(counters, card: str) -> dict:
+    """Training from scenes composed on the card; returns its numbers."""
+    from torchfcn.data.device_compositor import CropLibrary
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(DATA_SEED)
+    lib = CropLibrary.from_arrays(*synth_crops(rng))
+    bgs = {net: rng.integers(0, 70, (8, net, net, 3)).astype(np.float32)
+           for _, net, _ in DATA_CONFIGS}
+    out = dict(card_vs_cpu=[], cost=[])
+    seconds = {}
+    for _, net, batch in DATA_CONFIGS:
+        t = time.perf_counter()
+        out["card_vs_cpu"].append(card_against_cpu(lib, bgs[net], net,
+                                                   DATA_CPU_BATCH))
+        seconds[f"card_vs_cpu_{net}"] = time.perf_counter() - t
+        check_data_invariants(lib, bgs[net], net, batch)
+        out["cost"].append(compositor_cost(lib, bgs[net], net, batch, card))
+    t = time.perf_counter()
+    out["train"] = train_from_compositor(lib, bgs[DATA_CONFIGS[0][1]],
+                                         counters, card)
+    seconds["train"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["validation"] = validation_run(lib, counters, card)
+    seconds["validation"] = time.perf_counter() - t
+    out["seconds"] = dict(seconds, phase=time.perf_counter() - t0)
+    log("data", f"phase took {out['seconds']['phase']:.1f} s: " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in seconds.items()))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1364,6 +1925,7 @@ def main() -> int:
     families, big = phase_families(rng, counters, card)
     rows["group_rects"].update(big)
     train = phase_train(rng, counters, card)
+    data = phase_data(counters, card)
 
     meta = {
         "group_rects": ("torchfcn/csrc/group_rects.cu",
@@ -1375,13 +1937,19 @@ def main() -> int:
                       "tpufcn/ops/pallas/stem.py:126"),
     }
     per_step = train[0]["launches"]
+    composed_step = data["train"]["from_pipeline"]["launches_per_step"]
     kernels = [dict(name=name, route="cuda", source=meta[name][0],
                     replaces=meta[name][1], launches=launches[name],
                     train_launches_per_step=per_step[name] / (
                         TRAIN_WARMUP + TRAIN_STEPS),
+                    composed_train_launches_per_step=composed_step[name],
+                    validation_launches=data["validation"][
+                        "group_rects_per_validation"]
+                    if name == "group_rects" else 0,
                     **rows[name]) for name in counters]
     print(json.dumps({"card": card, "families": families}), flush=True)
     print(json.dumps({"card": card, "train": train}), flush=True)
+    print(json.dumps({"card": card, "data": data}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

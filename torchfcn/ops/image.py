@@ -16,7 +16,7 @@ matmuls (H, then W), with TF32 off whatever the caller's settings
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -37,27 +37,62 @@ def demean_bgr(img: torch.Tensor) -> torch.Tensor:
                                     min=torch.finfo(torch.float32).tiny)
 
 
-def resize_weights(in_size: int, out_size: int,
-                   device=None) -> torch.Tensor:
-    """(in_size, out_size) float32 weights of one axis, as JAX's
-    ``compute_weight_mat`` builds them for the linear kernel."""
+def scale_translate_weights(in_size: int, out_size: int, scale,
+                            translation: Optional[torch.Tensor] = None,
+                            antialias: bool = False,
+                            device=None) -> torch.Tensor:
+    """(..., in_size, out_size) float32 weights of one axis, as JAX's
+    ``compute_weight_mat`` builds them for the linear kernel inside a jitted
+    program: an output pixel ``i`` samples the input at ``(i + 0.5) / scale
+    - translation / scale - 0.5`` with a triangle kernel (widened by the
+    downscale factor with ``antialias``), each column divided by its sum
+    where that exceeds 1000 eps, and no weight where the sample lies
+    outside [-0.5, in_size - 0.5].
+
+    ``scale`` is a Python float (JAX's resize passes one, and inverts it in
+    float64) or a float32 tensor of shape (...,) (inverted in float32).
+    ``translation`` is None (no translation term) or a float32 tensor like
+    ``scale``.  The sample position rounds as XLA's CPU code does: without
+    a translation, ``(i + 0.5) * inv - 0.5`` is one fused multiply-add;
+    with one, ``t * inv`` rounds, ``(i + 0.5) * inv - t * inv`` is one fused
+    multiply-add and the ``- 0.5`` rounds again.  The products are exact in
+    float64, so each fused operation rounds once here too."""
     f32 = dict(dtype=torch.float32, device=device)
-    inv = torch.tensor(1.0 / (out_size / in_size), **f32)
-    kernel_scale = torch.clamp(inv, min=1.0)
-    # (i + 0.5) * inv - 0.5 rounded once, as XLA's fused multiply-add
-    # computes it: the product is exact in float64
-    sample = ((torch.arange(out_size, dtype=torch.float64, device=device)
-               + 0.5) * inv.double() - 0.5).float()
+    if isinstance(scale, torch.Tensor):
+        scale = scale.to(torch.float32)
+        f32["device"] = scale.device
+        inv = torch.ones_like(scale) / scale
+    else:
+        inv = torch.tensor(1.0 / scale, **f32)
+    pos = torch.arange(out_size, dtype=torch.float64,
+                       device=f32["device"]) + 0.5
+    prod = pos * inv.double()[..., None]
+    if translation is None:
+        sample = (prod - 0.5).float()
+    else:
+        shift = translation.to(torch.float32) * inv
+        sample = (prod - shift.double()[..., None]).float() - 0.5
+    kernel_scale = torch.clamp(inv, min=1.0) if antialias \
+        else torch.ones_like(inv)
     src = torch.arange(in_size, **f32)
-    w = torch.clamp(1.0 - (sample[None, :] - src[:, None]).abs()
-                    / kernel_scale, min=0.0)
-    total = w.sum(dim=0, keepdim=True)
+    w = torch.clamp(1.0 - (sample[..., None, :] - src[:, None]).abs()
+                    / kernel_scale[..., None, None], min=0.0)
+    total = w.sum(dim=-2, keepdim=True)
     eps = 1000.0 * torch.finfo(torch.float32).eps
     w = torch.where(total.abs() > eps,
                     w / torch.where(total != 0, total, 1.0), 0.0)
     # a sample outside the input gets no weight at all
     inside = (sample >= -0.5) & (sample <= in_size - 0.5)
-    return torch.where(inside[None, :], w, 0.0)
+    return torch.where(inside[..., None, :], w, 0.0)
+
+
+def resize_weights(in_size: int, out_size: int,
+                   device=None) -> torch.Tensor:
+    """(in_size, out_size) float32 weights of one axis, as
+    ``jax.image.resize(method="linear")`` builds them (antialiased, no
+    translation)."""
+    return scale_translate_weights(in_size, out_size, out_size / in_size,
+                                   antialias=True, device=device)
 
 
 def resize_bilinear(img: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:

@@ -122,6 +122,18 @@ def serving_model(model_name: str, dtype: torch.dtype, rng_seed: int,
     return model.to(device=device, memory_format=torch.channels_last)
 
 
+def model_and_device(model: Optional[nn.Module], model_name: str,
+                     dtype: torch.dtype, rng_seed: int,
+                     model_kwargs: Optional[dict], device,
+                     policy: DTypePolicy, weights: Optional[str]):
+    """(model, device) of a serving surface: ``model`` as it is on its own
+    device, or else ``serving_model``'s."""
+    if model is not None:
+        return model, next(model.parameters()).device
+    return (serving_model(model_name, dtype, rng_seed, model_kwargs, device,
+                          policy, weights), torch.device(device))
+
+
 class Detector:
     """Detector over any detection family of the zoo.
 
@@ -142,6 +154,10 @@ class Detector:
     ``{"store_dtype": torch.float8_e5m2}``); a ``num_classes`` there also
     sets the decode grid's.  The NMS kernel takes at most
     ``ops.cuda.group_rects.MAX_CANDIDATES`` candidates per class.
+    ``model``: a model of ``model_name`` to serve as it is, with its own
+    parameters, dtypes and device (a Trainer's live model, for the
+    validators); nothing is built, cast or loaded then, and ``dtype``
+    only picks the default policy's precision scope.
     """
 
     def __init__(self,
@@ -153,15 +169,16 @@ class Detector:
                  model_kwargs: Optional[dict] = None,
                  device="cuda",
                  policy: Optional[DTypePolicy] = None,
-                 weights: Optional[str] = None):
+                 weights: Optional[str] = None,
+                 model: Optional[nn.Module] = None):
         self.spec = get_spec(model_name)
         if "coverage" not in self.spec.heads:
             raise ValueError(f"{model_name} has no detection heads; serve "
                              f"it with torchfcn.serve.segment.Segmenter")
         self.policy = serving_policy(dtype, policy)
-        self.model = serving_model(model_name, dtype, rng_seed, model_kwargs,
-                                   device, self.policy, weights)
-        self.device = torch.device(device)
+        self.model, self.device = model_and_device(
+            model, model_name, dtype, rng_seed, model_kwargs, device,
+            self.policy, weights)
         grid = self.spec.grid
         if model_kwargs and "num_classes" in model_kwargs:
             grid = dataclasses.replace(
@@ -169,6 +186,12 @@ class Detector:
         self.config = config or DetectorConfig(
             grid=grid, model=model_name, max_candidates=max_candidates)
         self.grid = self.config.grid
+
+    @property
+    def num_fg(self) -> int:
+        """The number of foreground classes decoded."""
+        c = self.grid.num_classes
+        return c - 1 if self.spec.background_channel is not None else c
 
     def _forward(self, frames: torch.Tensor):
         """Preprocess + model forward -> (coverage, bboxes) NHWC grids."""

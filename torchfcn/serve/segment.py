@@ -18,7 +18,7 @@ from typing import Optional
 from torchfcn.core.dtypes import DTypePolicy
 from torchfcn.models import get_spec
 from torchfcn.ops.image import demean_bgr
-from torchfcn.serve.detector import serving_model, serving_policy
+from torchfcn.serve.detector import model_and_device, serving_policy
 
 
 class Segmenter:
@@ -33,19 +33,22 @@ class Segmenter:
     Detector; weights are otherwise the seeded Caffe "xavier" init
     (``rng_seed``) until loaded, e.g. with
     ``torchfcn.convert.from_jax.load_jax_params(seg.model, tree)``.
+    ``model``: a model of ``model_name`` served as it is, as for the
+    Detector.
     """
 
     def __init__(self, model_name: str = "fcn32s_seg",
                  dtype: torch.dtype = torch.bfloat16, rng_seed: int = 0,
                  device="cuda", policy: Optional[DTypePolicy] = None,
-                 weights: Optional[str] = None):
+                 weights: Optional[str] = None,
+                 model: Optional[torch.nn.Module] = None):
         self.spec = get_spec(model_name)
         if "seg" not in self.spec.heads:
             raise ValueError(f"{model_name} has no segmentation head")
         self.policy = serving_policy(dtype, policy)
-        self.model = serving_model(model_name, dtype, rng_seed, None, device,
-                                   self.policy, weights)
-        self.device = torch.device(device)
+        self.model, self.device = model_and_device(
+            model, model_name, dtype, rng_seed, None, device, self.policy,
+            weights)
 
     @classmethod
     def from_checkpoint(cls, snapshot_dir: str,

@@ -108,7 +108,10 @@ class MetricLogger:
 
 
 class Trainer:
-    """End-to-end training over a host batch iterator on one device.
+    """End-to-end training over a batch iterator on one device: host
+    batches, or batches on the device such as
+    ``iter(DeviceBatchCache(trainer.put, iter(pipe), n))`` over a
+    ``torchfcn.data.device_compositor.DeviceCompositePipeline``.
 
     ``policy`` (default ``DTypePolicy()``: float32 parameters, bf16
     compute) sets how the model computes; ``device`` defaults to "cuda"
@@ -212,10 +215,12 @@ class Trainer:
         return init_state(self.model, self.cfg, rng_seed=self.cfg.seed,
                           device=self.device, policy=self.policy)
 
-    def put(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        """Host batch -> tensors on the device (images stay uint8 until the
+    def put(self, batch: Dict) -> Dict[str, torch.Tensor]:
+        """Batch -> tensors on the device (images stay uint8 until the
         step's preprocessing, so transfers stay small); "seg" only when
-        training the seg head."""
+        training the seg head.  Tensors already on the device (the device
+        compositor's, a ``DeviceBatchCache``'s) are taken as they are, not
+        copied."""
         return {k: torch.as_tensor(v).to(self.device, non_blocking=True)
                 for k, v in batch.items()
                 if k != "seg" or self.with_seg}
