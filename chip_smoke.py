@@ -118,12 +118,27 @@ plain versions are full float32.
    detection_validator's held-out mAP on 64 scenes composed under another
    seed above VAL_MAP_LIMIT after training and below it at step 0, and the
    groupRectangles kernel held against its plain version on the trained
-   validator's candidates of one chunk.
+   validator's candidates of one chunk;
+10. gates: the accuracy gates (``torchfcn.train.gates``) at their capture
+   configurations on the hard benchmark's sources rendered on the host
+   (timed): the VGG16 pretrain at its capture shape for
+   GATE_PRETRAIN_STEPS steps (its loss at the end below step 1's), its
+   export loaded by name into vgg_pyramid_detectnet with every backbone
+   conv bit-equal to the classifier's; ``segmentation_gate`` of
+   fcn32s_seg (exact and e5m2 mIoU, the exact one above GATE_MIOU_LIMIT
+   and the untrained model's below it); ``detection_gate`` of
+   googlenet_detectnet_3cls (exact and e5m2 mAP, detections, the exact
+   mAP above GATE_MAP_LIMIT and step 0's below it), each LRN kernel
+   launched once a training step, groupRectangles once a scoring chunk
+   and held against its plain version on the trained model's first
+   chunk, the stem tail once an e5m2 scoring chunk; and the gate step's
+   device busy time with the LRN ops' plain backward's share.
 
 Then one JSON line of the families' numbers, one of the training runs'
-numbers, one of the data phase's, one JSON line of per-kernel numbers
-(with each kernel's launches per training step, per step fed by the
-compositor and per validation), each kernel's time beside its
+numbers, one of the data phase's, one of the gates', one JSON line of
+per-kernel numbers (with each kernel's launches per training step, per
+step fed by the compositor, per validation, per gate training step and
+per gate scoring), each kernel's time beside its
 bound (``bound_ms``: the larger of the bytes it must move over 3.35 TB/s
 and its operations over the peak rate of their type, 989 TFLOP/s on the
 bf16 tensor cores, 67 TFLOP/s in float32, or 4.18e12/s on the special-
@@ -472,6 +487,26 @@ STEM_SHAPES = ((BATCH, 112, 112, 64), (1, 30, 30, 64), (2, 57, 45, 64),
                (BATCH, 70, 33, 64))
 
 
+def check_stem_outputs(got, want, store, what: str) -> tuple:
+    """The stem tail's bounds against its plain version: bf16 within
+    STEM_ATOL or 2 ulps, e5m2 within one e5m2 step, and at least 99.9 %
+    bit-equal; returns (max |err|, bit-equal share)."""
+    torch.cuda.synchronize()
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    equal = float((g == w).float().mean())
+    if store is None:
+        bad = err > torch.clamp(2 * bf16_ulp(w), min=STEM_ATOL)
+    else:
+        bad = e5m2_steps(got, want) > 1
+    if bool(bad.any()) or equal < 0.999:
+        raise AssertionError(
+            f"{what}: {int(bad.sum())} entries beyond tolerance, "
+            f"{equal:.6f} bit-equal; got {g[bad][:5].tolist()} want "
+            f"{w[bad][:5].tolist()}")
+    return float(err.max()), equal
+
+
 def check_stem_tail(rng, dev) -> dict:
     """The stem-tail kernel against its plain version (float32 convs of
     the bf16 values, TF32 off) in bf16 and in e5m2, with the seeded model's
@@ -501,21 +536,10 @@ def check_stem_tail(rng, dev) -> dict:
             arg = None if store == torch.bfloat16 else store
             got = stem_tail_cuda(xs, *weights, arg)
             want = stem_tail(xs, *weights, arg)
-            torch.cuda.synchronize()
-            g, w = got.float(), want.float()
-            err = (g - w).abs()
-            equal = float((g == w).float().mean())
-            if arg is None:
-                bad = err > torch.clamp(2 * bf16_ulp(w), min=STEM_ATOL)
-            else:
-                bad = e5m2_steps(got, want) > 1
-            if bool(bad.any()) or equal < 0.999:
-                raise AssertionError(
-                    f"stem_tail {shape} {store}: {int(bad.sum())} entries "
-                    f"beyond tolerance, {equal:.6f} bit-equal; got "
-                    f"{g[bad][:5].tolist()} want {w[bad][:5].tolist()}")
+            max_err, equal = check_stem_outputs(got, want, arg,
+                                                f"stem_tail {shape} {store}")
             msg = f"stem_tail {shape} {store}: max|err| " \
-                f"{float(err.max()):.3g}, {equal * 100:.4f} % bit-equal"
+                f"{max_err:.3g}, {equal * 100:.4f} % bit-equal"
             if shape == STEM_SHAPES[0]:
                 ms = busy_ms(lambda: stem_tail_cuda(xs, *weights, arg))
                 call_ms = median_ms(lambda: stem_tail_cuda(xs, *weights, arg))
@@ -523,7 +547,7 @@ def check_stem_tail(rng, dev) -> dict:
                 msg += f", kernel {ms:.4f} ms (call {call_ms:.4f}), plain " \
                     f"{plain_ms:.4f} ms"
                 if arg is not None:   # the serving path's: into the JSON
-                    row = dict(max_abs_err=float(err.max()), ms=ms,
+                    row = dict(max_abs_err=max_err, ms=ms,
                                call_ms=call_ms, plain_ms=plain_ms,
                                library_ms=None)
                     serving_x = xs
@@ -1011,18 +1035,20 @@ def recorded_max_pools(inputs: list):
 
 
 @contextlib.contextmanager
-def recorded_calls(module, name: str, calls: list):
+def recorded_calls(module, name: str, calls: list, limit: int = None):
     """Appends the arguments, by name with the defaults filled in, of every
-    call of ``module.<name>`` inside the scope to ``calls``; the function
-    itself still runs (and counts its launches)."""
+    call of ``module.<name>`` inside the scope to ``calls`` (of the first
+    ``limit`` calls, where given); the function itself still runs (and
+    counts its launches)."""
     import inspect
     fn = getattr(module, name)
     signature = inspect.signature(fn)
 
     def recording(*args, **kw):
-        bound_args = signature.bind(*args, **kw)
-        bound_args.apply_defaults()
-        calls.append(dict(bound_args.arguments))
+        if limit is None or len(calls) < limit:
+            bound_args = signature.bind(*args, **kw)
+            bound_args.apply_defaults()
+            calls.append(dict(bound_args.arguments))
         return fn(*args, **kw)
 
     setattr(module, name, recording)
@@ -1475,14 +1501,21 @@ def compositor_scopes_removed():
 
 def card_against_cpu(lib, bgs, net: int, batch: int) -> dict:
     """One set of draws made on the cpu, composed on the cpu and on the card
-    with the caller's TF32 on; held to the DATA_* limits above.  A control
-    composes the same draws on the card with the compositor's exact-float32
-    scopes made no-ops: its float image must differ from the cpu's by more
-    than DATA_IMAGE_ATOL, or this check could not see a missing scope."""
-    import torch.nn.functional as F
+    (held_against_cpu)."""
     cpu = data_pipe(lib, bgs, net, batch, SEED + 10, device="cpu")
     card = data_pipe(lib, bgs, net, batch, SEED + 10)
-    draws = cpu.draw(batch)
+    return held_against_cpu(cpu, card, cpu.draw(batch), "data",
+                            f"{net}x{net} B={batch}")
+
+
+def held_against_cpu(cpu, card, draws, phase: str, what: str) -> dict:
+    """``draws`` (on the cpu) composed by the pipeline ``cpu`` and by the
+    pipeline ``card`` with the caller's TF32 on; held to the DATA_* limits
+    above.  A control composes the same draws on the card with the
+    compositor's exact-float32 scopes made no-ops: its float image must
+    differ from the cpu's by more than DATA_IMAGE_ATOL, or this check could
+    not see a missing scope."""
+    import torch.nn.functional as F
     want = cpu.compose(draws, checks=True)
     with caller_tf32():
         got = {k: v.cpu() for k, v in card.compose(draws.to("cuda"),
@@ -1492,7 +1525,8 @@ def card_against_cpu(lib, bgs, net: int, batch: int) -> dict:
             control = control["image_float"].cpu()
     for k in ("rects", "labels", "valid"):
         if not torch.equal(got[k], want[k]):
-            raise AssertionError(f"data: card and cpu {k} differ")
+            raise AssertionError(f"{phase}: card and cpu {k} differ at "
+                                 f"{what}")
     near = want["mask_margin"] < DATA_MASK_TOL
     seg_off = (got["seg"] != want["seg"]) & ~near
     reach = F.max_pool2d(near.float()[:, None], 2 * DATA_REACH + 1, 1,
@@ -1506,24 +1540,25 @@ def card_against_cpu(lib, bgs, net: int, batch: int) -> dict:
     control_worst, _ = away(control)
     if int(seg_off.sum()) or not worst <= DATA_IMAGE_ATOL:
         raise AssertionError(
-            f"data: card against cpu at {net}x{net}: {int(seg_off.sum())} "
+            f"{phase}: card against cpu at {what}: {int(seg_off.sum())} "
             f"seg pixels differ away from the mask threshold; float image "
             f"max|diff| {worst:.3g} (atol {DATA_IMAGE_ATOL:g})")
     if not control_worst > DATA_IMAGE_ATOL:
         raise AssertionError(
-            f"data: the control without the exact-float32 scopes passes at "
-            f"{net}x{net} (max|diff| {control_worst:.3g}, atol "
+            f"{phase}: the control without the exact-float32 scopes passes "
+            f"at {what} (max|diff| {control_worst:.3g}, atol "
             f"{DATA_IMAGE_ATOL:g}): the check cannot see a missing scope")
-    row = dict(net=net, batch=batch, near_threshold_px=int(near.sum()),
+    h, w = want["seg"].shape[1:]
+    row = dict(net=h, batch=want["seg"].shape[0],
+               near_threshold_px=int(near.sum()),
                seg_differ_px=int((got["seg"] != want["seg"]).sum()),
                image_max_abs_err=worst,
                image_max_abs_err_all=float(err.max()),
                control_image_max_abs_err=control_worst,
                u8_differ_share=float((got["image"] != want["image"])
                                      .float().mean()))
-    log("data", f"card against cpu, {net}x{net} B={batch}, one set of draws "
-        f"made on the cpu, the caller's TF32 on: rects, labels and valid "
-        f"equal; "
+    log(phase, f"card against cpu, {what}, one set of draws made on the "
+        f"cpu, the caller's TF32 on: rects, labels and valid equal; "
         f"{row['near_threshold_px']} pixels with a rendered mask within "
         f"{DATA_MASK_TOL:g} of 0.5, {row['seg_differ_px']} seg pixels differ "
         f"(all among them); float image max|diff| {worst:.3g} away from "
@@ -1681,46 +1716,57 @@ def timed_steps(trainer, state, it, counters) -> tuple:
                        launches_per_step=launches)
 
 
-def check_composed_lrn(trainer, state, it, batch: int) -> tuple:
-    """One step of the Trainer from ``it`` with the inputs of its LRN layers
-    recorded; each LRN kernel held against its plain version on the
-    recorded input, within check_lrn_outputs' bounds (phase_kernels'), and
-    its instance checked.  Returns the state and the numbers."""
+def check_recorded_lrn(calls: dict, batch: int, phase: str,
+                       where: str) -> dict:
+    """Each LRN kernel held against its plain version on the input of its
+    one recorded call (``calls``: "lrn_cuda" and "lrn_maxpool_cuda", each
+    a list from recorded_calls), within check_lrn_outputs' bounds
+    (phase_kernels'); the input must have ``batch`` rows and take the
+    vector instance.  Returns the numbers by kernel."""
     from torchfcn.models import layers
     from torchfcn.ops.caffe_layers import lrn_across_channels
     from torchfcn.ops.cuda.lrn import vector_instance
     from torchfcn.ops.cuda.lrn_pool import lrn_maxpool
     plains = {"lrn_cuda": ("lrn", lrn_across_channels),
               "lrn_maxpool_cuda": ("lrn_maxpool", lrn_maxpool)}
-    calls = {fn: [] for fn in plains}
-    with recorded_calls(layers, "lrn_cuda", calls["lrn_cuda"]), \
-            recorded_calls(layers, "lrn_maxpool_cuda",
-                           calls["lrn_maxpool_cuda"]):
-        state, _ = trainer.step_fn(state, trainer.put(next(it)))
     out = {}
     for fn, (name, plain) in plains.items():
         if len(calls[fn]) != 1:
-            raise AssertionError(f"data: {len(calls[fn])} {name} layers ran "
-                                 f"in a composed step, not one")
+            raise AssertionError(f"{phase}: {len(calls[fn])} {name} calls "
+                                 f"recorded in {where}, not one")
         args = dict(calls[fn][0])
         x = args.pop("x").detach()
         if x.shape[0] != batch or not vector_instance(x.dtype, x.shape[-1],
                                                       x.data_ptr()):
-            raise AssertionError(f"data: {name} ran on {tuple(x.shape)} "
+            raise AssertionError(f"{phase}: {name} ran on {tuple(x.shape)} "
                                  f"{x.dtype}, not B = {batch} in the vector "
                                  f"instance")
         with torch.no_grad():
             got, want = getattr(layers, fn)(x, **args), plain(x, **args)
         torch.cuda.synchronize()
-        what = f"{name} {tuple(x.shape)} {x.dtype} of a composed step"
+        what = f"{name} {tuple(x.shape)} {x.dtype} of {where}"
         err = check_lrn_outputs(got, want, x.dtype, what)
         out[name] = dict(shape=list(x.shape), dtype=str(x.dtype),
                          max_abs_err=err,
                          bit_equal_share=float((got == want).float().mean()))
-        log("data", f"{what}: the kernel against its plain version, max|err| "
+        log(phase, f"{what}: the kernel against its plain version, max|err| "
             f"{err:.3g}, {100 * out[name]['bit_equal_share']:.4f} % "
             f"bit-equal")
-    return state, out
+    return out
+
+
+def check_composed_lrn(trainer, state, it, batch: int) -> tuple:
+    """One step of the Trainer from ``it`` with the inputs of its LRN layers
+    recorded; each LRN kernel held against its plain version on the
+    recorded input (check_recorded_lrn).  Returns the state and the
+    numbers."""
+    from torchfcn.models import layers
+    calls = {"lrn_cuda": [], "lrn_maxpool_cuda": []}
+    with recorded_calls(layers, "lrn_cuda", calls["lrn_cuda"]), \
+            recorded_calls(layers, "lrn_maxpool_cuda",
+                           calls["lrn_maxpool_cuda"]):
+        state, _ = trainer.step_fn(state, trainer.put(next(it)))
+    return state, check_recorded_lrn(calls, batch, "data", "a composed step")
 
 
 def train_from_compositor(lib, bgs, counters, card: str) -> dict:
@@ -1886,6 +1932,442 @@ def phase_data(counters, card: str) -> dict:
     return out
 
 
+# the gates phase: the accuracy gates at their capture configurations
+# (torchfcn.train.gates.bench_gate_configs("bench")), through the port's
+# gate entry points, on the hard benchmark's sources rendered on the host.
+# The VGG16 pretrain keeps its capture shape (6 classes, 128 px, a bank of
+# 8,192, B = 128, lr 1e-4) but runs GATE_PRETRAIN_STEPS of its 4,000 steps
+# to fit the time limit.  Each exact reading must exceed its limit and the
+# untrained model's must not; the limits sit below the lowest reading of
+# the card runs (fcn32s mIoU 0.9053 and googlenet_3cls mAP 0.7949 in each,
+# NVIDIA H100 80GB HBM3, 700 W; PERF.md, section 6)
+GATE_PRETRAIN_STEPS = 300
+GATE_SEG = "fcn32s"
+GATE_DET = "googlenet_3cls"
+GATE_MIOU_LIMIT, GATE_MAP_LIMIT = 0.85, 0.7
+# steps of each gate's Trainer profiled for its device busy time (and the
+# LRN backward's share), after as many warm-up steps
+GATE_PROFILED_STEPS = 3
+# the gates whose training steps are profiled: every capture-tier family
+# the bank of the pretrain's profiled run: its minibatches are the capture
+# shape's, only the bank they are drawn from is smaller
+GATE_PRETRAIN_PROFILE_BANK = 512
+GATE_PROFILED = ("fcn32s", "fcn8s", "vgg_pyramid", "googlenet_3cls",
+                 "googlenet")
+
+
+@contextlib.contextmanager
+def counted_calls(module, name: str, counters, rows: list):
+    """Each call of ``module.<name>`` inside the scope counted on its own:
+    the kernels' launch counts set to 0 before it and appended to ``rows``
+    after it."""
+    fn = getattr(module, name)
+
+    def counting(*args, **kw):
+        for c in counters.values():
+            c.launches = 0
+        out = fn(*args, **kw)
+        rows.append({k: c.launches for k, c in counters.items()})
+        return out
+
+    setattr(module, name, counting)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+@contextlib.contextmanager
+def scoring_inputs(rows: list):
+    """Each call of ``gates._score_detector`` inside the scope appends to
+    ``rows`` the arguments of the first call, within that scoring, of each
+    wrapper that launches a model kernel: ``lrn_cuda``,
+    ``lrn_maxpool_cuda`` and ``stem_tail_cuda`` (lists from
+    recorded_calls, empty where the scoring's net has no such layer)."""
+    from torchfcn.models import googlenet, layers
+    from torchfcn.train import gates
+    fn = gates._score_detector
+    wrappers = ((layers, "lrn_cuda"), (layers, "lrn_maxpool_cuda"),
+                (googlenet, "stem_tail_cuda"))
+
+    def scoring(*args, **kw):
+        calls = {name: [] for _, name in wrappers}
+        with contextlib.ExitStack() as stack:
+            for module, name in wrappers:
+                stack.enter_context(recorded_calls(module, name, calls[name],
+                                                   limit=1))
+            out = fn(*args, **kw)
+        rows.append(calls)
+        return out
+
+    gates._score_detector = scoring
+    try:
+        yield
+    finally:
+        gates._score_detector = fn
+
+
+def check_recorded_stem(calls: list, batch: int) -> dict:
+    """The stem-tail kernel held against its plain version on the input and
+    weights of its recorded call (an e5m2 scoring chunk), within
+    check_stem_outputs' bounds (phase_kernels')."""
+    from torchfcn.models import googlenet
+    from torchfcn.ops.stem import stem_tail
+    if len(calls) != 1:
+        raise AssertionError(f"gates: {len(calls)} stem_tail calls recorded "
+                             f"in the e5m2 scoring, not one")
+    args = dict(calls[0])
+    x = args["x"]
+    weights = [args[k].detach() for k in ("wr", "br", "w2", "b2")]
+    store = args["store_dtype"]
+    if x.shape[0] != batch or store != torch.float8_e5m2:
+        raise AssertionError(f"gates: stem_tail ran on {tuple(x.shape)} "
+                             f"storing {store}, not B = {batch} in e5m2")
+    with torch.no_grad():
+        got = googlenet.stem_tail_cuda(x, *weights, store)
+        want = stem_tail(x, *weights, store)
+    what = f"stem_tail {tuple(x.shape)} e5m2 of the trained net's e5m2 " \
+        f"scoring chunk"
+    max_err, equal = check_stem_outputs(got, want, store, what)
+    log("gates", f"{what}: the kernel against its plain version, max|err| "
+        f"{max_err:.3g}, {100 * equal:.4f} % bit-equal")
+    return dict(shape=list(x.shape), dtype=str(x.dtype), max_abs_err=max_err,
+                bit_equal_share=equal)
+
+
+def gate_cfg(cfgs: dict, family: str) -> tuple:
+    """(kind, the gate's keyword arguments) of a capture-tier entry, without
+    the scheduler's keys."""
+    cfg = dict(cfgs[family])
+    return cfg.pop("kind"), {k: v for k, v in cfg.items()
+                             if k not in ("est_s", "est_s0", "seeds",
+                                          "pretrain")}
+
+
+def gate_step_profile(root: str, family: str, card: str) -> dict:
+    """The gate's Trainer (its capture configuration, seed 0, seeded
+    weights) on GATE_PROFILED_STEPS composed batches under torch.profiler,
+    after as many warm-up steps: device busy per step and the LRN ops'
+    plain backward's share of it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from torchfcn.data.hardbench import hard_device_pipeline
+    from torchfcn.serve.profile import device_rows, range_device_us
+    from torchfcn.train import gates
+    kind, cfg = gate_cfg(gates.bench_gate_configs("bench"), family)
+    g, grid = gates._gate_geometry(kind, cfg)
+    model = g.get("model", "fcn32s_seg")
+    trainer = gates._hard_trainer(
+        model, grid, root, steps=g["steps"], batch=g["batch"], seed=0,
+        with_seg=kind == "segmentation" or g["with_seg"],
+        model_kwargs={"num_classes": grid.num_classes},
+        lr=g.get("lr", 3e-4), device="cuda")
+    pipe = hard_device_pipeline(root, grid, batch_size=g["batch"], seed=1000,
+                                classes=g["classes"])
+    state = trainer.init_state()
+    batches = [trainer.put(pipe.batch(g["batch"]))
+               for _ in range(2 * GATE_PROFILED_STEPS)]
+    for b in batches[:GATE_PROFILED_STEPS]:
+        state, _ = trainer.step_fn(state, b)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for b in batches[GATE_PROFILED_STEPS:]:
+            state, _ = trainer.step_fn(state, b)
+        torch.cuda.synchronize()
+    busy = sum(us for _, us, _ in device_rows(prof)) / 1e3 \
+        / GATE_PROFILED_STEPS
+    bwd = sum(range_device_us(prof, f"torchfcn::{plain}_vjp")
+              for plain in ("lrn_across_channels", "lrn_maxpool")
+              ) / 1e3 / GATE_PROFILED_STEPS
+    row = dict(model=model, batch=g["batch"], im=g["im"], busy_ms_step=busy,
+               lrn_backward_ms_step=bwd, lrn_backward_share=bwd / busy)
+    log("gates", f"{family} gate step, {model} B={g['batch']} "
+        f"{g['im']}x{g['im']} on composed hard scenes: device busy "
+        f"{busy:.3f} ms per step, the LRN ops' plain backward {bwd:.3f} ms "
+        f"of it ({100 * bwd / busy:.2f} %) (torch.profiler, "
+        f"{GATE_PROFILED_STEPS} steps); on {card}")
+    return row
+
+
+def eval_set_against_cpu(root: str, kind: str, cfg: dict) -> dict:
+    """The first chunk of a gate's held-out set: build_eval_set's draws (a
+    cpu generator seeded 99) composed on the cpu and on the card
+    (held_against_cpu), and the card's composition with TF32 off equal to
+    the set the gate scored, cached by build_eval_set."""
+    from torchfcn.data.hardbench import build_eval_set, hard_device_pipeline
+    from torchfcn.train import gates
+    g, grid = gates._gate_geometry(kind, cfg)
+    images, gts, segs = build_eval_set(root, grid, classes=g["classes"],
+                                       n_images=g["eval_images"])
+    n = min(32, g["eval_images"])
+    cpu, card = (hard_device_pipeline(root, grid, batch_size=n, seed=99,
+                                      classes=g["classes"], device=dev)
+                 for dev in ("cpu", "cuda"))
+    draws = cpu.draw(n)
+    row = held_against_cpu(cpu, card, draws, "gates",
+                           f"the first {n} held-out scenes of the "
+                           f"{grid.im_height}x{grid.im_width} gate")
+    scored = card.compose(draws.to("cuda"))
+    rects = scored["rects"].cpu().numpy()
+    valid = scored["valid"].cpu().numpy()
+    same = np.array_equal(scored["image"].cpu().numpy(), images[:n]) and \
+        np.array_equal(scored["seg"].cpu().numpy(), segs[:n]) and all(
+            np.array_equal(np.concatenate([r[v][:, :2], r[v][:, :2]
+                                           + r[v][:, 2:4]], 1), gt[0])
+            for r, v, gt in zip(rects, valid, gts[:n]))
+    if not same:
+        raise AssertionError(f"gates: the card's composition of the first "
+                             f"{n} held-out draws differs from the set "
+                             f"build_eval_set cached")
+    return row
+
+
+def initial_params(root: str, kind: str, cfg: dict) -> dict:
+    """The gate's step-0 parameters (its Trainer's seeded init, seed 0)."""
+    from torchfcn.train import gates
+    g, grid = gates._gate_geometry(kind, cfg)
+    trainer = gates._hard_trainer(
+        g.get("model", "fcn32s_seg"), grid, root, steps=g["steps"],
+        batch=g["batch"], seed=0, with_seg=kind == "segmentation",
+        model_kwargs={"num_classes": grid.num_classes},
+        lr=g.get("lr", 3e-4), device="cuda")
+    return trainer.init_state().model.state_dict()
+
+
+@contextlib.contextmanager
+def pretrain_clock(marks: list, prof_rows: list = None):
+    """A ``log`` for pretrain_vgg16: appends (host time, line) to ``marks``.
+    With ``prof_rows``, it profiles the steps after its step-1 line up to
+    its last line (both read the loss back, so each follows a
+    synchronisation) and appends the device rows to ``prof_rows``.  Each
+    line's time is taken after the profiler's own work."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from torchfcn.serve.profile import device_rows
+    running = []
+
+    def mark(line: str):
+        if prof_rows is not None and line.startswith("pretrain: step "):
+            if running:
+                running.pop().__exit__(None, None, None)
+                prof_rows.extend(device_rows(prof))
+            elif line.startswith("pretrain: step 1/"):
+                prof.__enter__()
+                running.append(prof)
+        marks.append((time.perf_counter(), line))
+
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    try:
+        yield mark
+    finally:
+        for p in running:
+            p.__exit__(None, None, None)
+
+
+def phase_gates(counters, card: str) -> dict:
+    """The accuracy gates on the card; returns their readings."""
+    import tempfile
+
+    from torchfcn import convert
+    from torchfcn.convert import load_caffemodel, resolve_weights
+    from torchfcn.data.hardbench import build_eval_set, hard_sources
+    from torchfcn.models import build as build_model
+    from torchfcn.serve import detector as detector_module
+    from torchfcn.train import gates
+    from torchfcn.train.pretrain import LOG_EVERY, pretrain_vgg16
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="torchfcn_gates_")
+    cfgs = gates.bench_gate_configs("bench")
+    seconds = {}
+
+    # (a) the sources, on the host
+    t = time.perf_counter()
+    src = hard_sources(root)
+    seconds["sources"] = time.perf_counter() - t
+    log("gates", f"hard sources rendered on the host in "
+        f"{seconds['sources']:.2f} s: {len(src.labels)} crops, "
+        f"{len(src.backgrounds)} backgrounds of 384x512")
+
+    # (b) the VGG16 pretrain at the capture shape, cut in steps; the steps
+    # after step LOG_EVERY timed on the host.  A short run on a smaller
+    # bank (the same minibatches' shapes) profiles GATE_PROFILED_STEPS
+    # steps after its first
+    pre = {k: v for k, v in cfgs["vgg16_pretrain"].items()
+           if k not in ("kind", "est_s", "est_s0")}
+    marks, prof_rows, exported = [], [], []
+    with pretrain_clock([], prof_rows) as mark:
+        pretrain_vgg16(f"{root}/profiled.caffemodel", batch=128,
+                       device="cuda", log=mark, **dict(
+                           pre, steps=1 + GATE_PROFILED_STEPS,
+                           n_bank=GATE_PRETRAIN_PROFILE_BANK))
+    if not prof_rows:
+        raise AssertionError("gates: the pretrain's profiled steps recorded "
+                             "no device time")
+    pre["steps"] = GATE_PRETRAIN_STEPS
+    path = f"{root}/vgg16_pretrain.caffemodel"
+    t = time.perf_counter()
+    with recorded_calls(convert, "export_caffemodel", exported), \
+            pretrain_clock(marks) as mark:
+        res = pretrain_vgg16(path, batch=128, device="cuda", log=mark, **pre)
+    seconds["pretrain"] = time.perf_counter() - t
+    bank_s = marks[0][0] - t
+    steps_at = {int(m.split()[2].split("/")[0]): at for at, m in marks
+                if m.startswith("pretrain: step ")}
+    if not res["loss"] < res["loss_start"]:
+        raise AssertionError(f"gates: the pretrain's loss at step "
+                             f"{res['steps']} ({res['loss']}) is not below "
+                             f"step 1's ({res['loss_start']})")
+    classifier = exported[0]["model"]
+    net = build_model("vgg_pyramid_detectnet", num_classes=5)
+    resolve_weights(path, net)
+    blobs = load_caffemodel(path)
+    for name, conv in (("backbone/" + n, getattr(net.backbone, n))
+                       for n, _ in net.backbone.named_children()):
+        mine = getattr(classifier.backbone, name.split("/")[1])
+        for got, want in ((conv.weight, mine.weight), (conv.bias, mine.bias)):
+            if not torch.equal(got.detach().cpu(), want.detach().float().cpu()):
+                raise AssertionError(f"gates: {name} of the exported "
+                                     f"pretrain differs from the classifier's")
+        if not np.array_equal(blobs[name][0], conv.weight.detach().numpy()):
+            raise AssertionError(f"gates: {name} blob differs")
+    timed = res["steps"] - LOG_EVERY
+    pretrain = dict(res, bank_s=bank_s, capture_steps=cfgs["vgg16_pretrain"]
+                    ["steps"], seconds=seconds["pretrain"],
+                    steps_s=timed / (steps_at[res["steps"]]
+                                     - steps_at[LOG_EVERY]),
+                    busy_ms_step=sum(us for _, us, _ in prof_rows) / 1e3
+                    / GATE_PROFILED_STEPS)
+    log("gates", f"VGG16 pretrain, 6 classes at 128 px, bank of 8,192 "
+        f"rendered on the host in {bank_s:.1f} s, B=128 lr 1e-4: "
+        f"{res['steps']} of the capture tier's "
+        f"{pretrain['capture_steps']} steps; device busy "
+        f"{pretrain['busy_ms_step']:.3f} ms per step (torch.profiler, "
+        f"{GATE_PROFILED_STEPS} steps), steps {LOG_EVERY + 1}-{res['steps']} "
+        f"at {pretrain['steps_s']:.2f} steps/s; loss {res['loss_start']} at "
+        f"step 1, {res['loss']} at step {res['steps']} (accuracy "
+        f"{res['train_acc']}); exported and loaded by name into "
+        f"vgg_pyramid_detectnet: its 13 backbone convs equal the "
+        f"classifier's bit for bit; on {card}")
+
+    # (c) the segmentation gate at its capture configuration
+    _, seg_cfg = gate_cfg(cfgs, GATE_SEG)
+    t = time.perf_counter()
+    seg = gates.segmentation_gate(root=root, seeds=(0,), device="cuda",
+                                  **seg_cfg)
+    seconds["segmentation"] = time.perf_counter() - t
+    g, grid = gates._gate_geometry("segmentation", seg_cfg)
+    images, _, segs = build_eval_set(root, grid, classes=g["classes"],
+                                     n_images=g["eval_images"])
+    seg["step0_mIoU"] = round(gates._score_segmenter(
+        "fcn32s_seg", initial_params(root, "segmentation", seg_cfg), images,
+        segs, grid.num_classes), 4)
+    seg["steps_s"] = seg_cfg["steps"] / seg["train_s"]
+    seg["eval_set_against_cpu"] = eval_set_against_cpu(root, "segmentation",
+                                                       seg_cfg)
+    log("gates", f"segmentation gate fcn32s_seg, 224x224, 4 classes + "
+        f"background, B={seg_cfg['batch']}, {seg_cfg['steps']} steps from a "
+        f"cache of {seg_cfg['n_cached']} composed batches in "
+        f"{seg['train_s']} s ({seg['steps_s']:.2f} steps/s with the cache), "
+        f"scored on {seg['eval_images']} held-out scenes: mIoU exact "
+        f"{seg['exact']['mIoU']}, fp8 {seg['fp8']['mIoU']}, step 0 "
+        f"{seg['step0_mIoU']}; limit {GATE_MIOU_LIMIT}; on {card}")
+    if not seg["step0_mIoU"] < GATE_MIOU_LIMIT < seg["exact"]["mIoU"]:
+        raise AssertionError(
+            f"gates: mIoU {seg['step0_mIoU']} at step 0 and "
+            f"{seg['exact']['mIoU']} trained do not straddle the limit "
+            f"{GATE_MIOU_LIMIT}")
+
+    # (d) the detection gate at its capture configuration, each training
+    # and scoring counted on its own, the kernels' inputs of each scoring
+    # recorded
+    _, det_cfg = gate_cfg(cfgs, GATE_DET)
+    model = det_cfg.pop("model")
+    trains, scorings, nms, inputs = [], [], [], []
+    t = time.perf_counter()
+    with counted_calls(gates, "_train_hard", counters, trains), \
+            counted_calls(gates, "_score_detector", counters, scorings), \
+            scoring_inputs(inputs), \
+            recorded_calls(detector_module, "vote_boxes_batched", nms):
+        det = gates.detection_gate(model, root=root, seeds=(0,),
+                                   device="cuda", **det_cfg)
+    seconds["detection"] = time.perf_counter() - t
+    chunks = -(-det["eval_images"] // 32)
+    steps = det_cfg["steps"]
+    per_step = {k: v / steps for k, v in trains[0].items()}
+    exact_l, fp8_l = scorings
+    for k in ("lrn", "lrn_maxpool"):
+        if per_step[k] != 1:
+            raise AssertionError(f"gates: {k} launched {per_step[k]} times "
+                                 f"a training step, not once")
+    if exact_l["group_rects"] != chunks or fp8_l["group_rects"] != chunks:
+        raise AssertionError(f"gates: groupRectangles launched "
+                             f"{exact_l['group_rects']} / "
+                             f"{fp8_l['group_rects']} times in {chunks} "
+                             f"scoring chunks")
+    if fp8_l["stem_tail"] != chunks:
+        raise AssertionError(f"gates: stem_tail launched "
+                             f"{fp8_l['stem_tail']} times in {chunks} fp8 "
+                             f"scoring chunks")
+    first = nms[0]
+    rects = first["propose_boxes"].float().contiguous().clone()
+    valid = first["valid"].contiguous().clone()
+    if not bool(valid.any()):
+        raise AssertionError("gates: the trained model's first scoring "
+                             "chunk has no valid NMS candidate")
+    exact_in, fp8_in = inputs
+    against_plain = dict(
+        group_rects=dict(shape=list(rects.shape), valid_candidates=int(
+            valid.sum()), **check_group_rects(
+                rects, valid, f"the trained {model}'s first scoring chunk "
+                f"({int(valid.sum())} valid candidates)", timed=False,
+                group_threshold=first["group_threshold"], eps=first["eps"])),
+        **check_recorded_lrn(exact_in, 32, "gates",
+                             f"the trained {model}'s first exact scoring "
+                             f"chunk"),
+        stem_tail=check_recorded_stem(fp8_in["stem_tail_cuda"], 32))
+    g, grid = gates._gate_geometry("detection", det_cfg | {"model": model})
+    images, gts, _ = build_eval_set(root, grid, classes=g["classes"],
+                                    n_images=g["eval_images"])
+    step0, _ = gates._score_detector(
+        model, initial_params(root, "detection", det_cfg | {"model": model}),
+        grid, images, gts, g["classes"], {"num_classes": grid.num_classes})
+    det.update(step0_mAP=round(step0, 4), steps_s=steps / det["train_s"],
+               launches_per_train_step=per_step,
+               scoring_launches={"exact": exact_l, "fp8": fp8_l},
+               scoring_chunks=chunks, against_plain=against_plain,
+               eval_set_against_cpu=eval_set_against_cpu(
+                   root, "detection", det_cfg | {"model": model}))
+    log("gates", f"detection gate {model}, 448x448, 3 classes, B=16 lr "
+        f"{det_cfg['lr']:g}, {steps} steps from a cache of "
+        f"{det_cfg['n_cached']} composed batches in {det['train_s']} s "
+        f"({det['steps_s']:.2f} steps/s with the cache), scored on "
+        f"{det['eval_images']} held-out scenes ({det['n_gt']} boxes): mAP "
+        f"exact {det['exact']['mAP']} ({det['n_det']} detections), fp8 "
+        f"{det['fp8']['mAP']}, step 0 {det['step0_mAP']}; limit "
+        f"{GATE_MAP_LIMIT}; launches per training step {per_step}, per "
+        f"scoring of {chunks} chunks exact {exact_l}, fp8 {fp8_l}; on "
+        f"{card}")
+    if not det["step0_mAP"] < GATE_MAP_LIMIT < det["exact"]["mAP"]:
+        raise AssertionError(
+            f"gates: mAP {det['step0_mAP']} at step 0 and "
+            f"{det['exact']['mAP']} trained do not straddle the limit "
+            f"{GATE_MAP_LIMIT}")
+
+    # (e) each capture-tier gate's training step, profiled
+    t = time.perf_counter()
+    profiles = {family: gate_step_profile(root, family, card)
+                for family in GATE_PROFILED}
+    seconds["profiles"] = time.perf_counter() - t
+    seconds["phase"] = time.perf_counter() - t_phase
+    log("gates", f"phase took {seconds['phase']:.1f} s: " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in seconds.items() if k != "phase"))
+    return dict(pretrain=pretrain, segmentation=seg, detection=det,
+                step_profiles=profiles,
+                limits=dict(mIoU=GATE_MIOU_LIMIT, mAP=GATE_MAP_LIMIT),
+                seconds=seconds)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1926,6 +2408,7 @@ def main() -> int:
     rows["group_rects"].update(big)
     train = phase_train(rng, counters, card)
     data = phase_data(counters, card)
+    gate = phase_gates(counters, card)
 
     meta = {
         "group_rects": ("torchfcn/csrc/group_rects.cu",
@@ -1946,10 +2429,16 @@ def main() -> int:
                     validation_launches=data["validation"][
                         "group_rects_per_validation"]
                     if name == "group_rects" else 0,
+                    gate_train_launches_per_step=gate["detection"][
+                        "launches_per_train_step"][name],
+                    gate_scoring_launches={
+                        tag: n[name] for tag, n in
+                        gate["detection"]["scoring_launches"].items()},
                     **rows[name]) for name in counters]
     print(json.dumps({"card": card, "families": families}), flush=True)
     print(json.dumps({"card": card, "train": train}), flush=True)
     print(json.dumps({"card": card, "data": data}), flush=True)
+    print(json.dumps({"card": card, "gates": gate}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -157,19 +157,28 @@ def test_detector_devices_and_frame_size(monkeypatch, rng):
 
 
 def test_port_imports_without_jax():
-    """The port never imports JAX, Flax or tpufcn: statically, and when
-    they cannot be imported at all."""
-    pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|tpufcn)\b", re.M)
+    """The port never imports JAX, Flax, tpufcn or cv2 (the card's host has
+    neither JAX nor cv2): statically, and when they cannot be imported at
+    all, its serving, data, pretrain, gate and CLI modules included."""
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|tpufcn|cv2)\b",
+                         re.M)
     offenders = [str(p) for p in (REPO / "torchfcn").rglob("*.py")
                  if pattern.search(p.read_text())]
     offenders += [p for p in ("chip_smoke.py",)
                   if pattern.search((REPO / p).read_text())]
     assert not offenders
     code = ("import sys\n"
-            "for m in ('jax', 'flax', 'tpufcn'): sys.modules[m] = None\n"
-            "import torchfcn.serve.detector, torchfcn.convert.from_jax\n")
-    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
-                   timeout=120)
+            "for m in ('jax', 'flax', 'tpufcn', 'cv2'):\n"
+            "    sys.modules[m] = None\n"
+            "import torchfcn.serve.detector, torchfcn.convert.from_jax\n"
+            "import torchfcn.data.raster, torchfcn.data.hardbench\n"
+            "import torchfcn.train.pretrain, torchfcn.train.gates\n"
+            "import torchfcn.cli\n"
+            "torchfcn.cli.main(['gates', '--help'])\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          timeout=120, capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stderr
+    assert "--family" in proc.stdout
 
 
 def test_chip_smoke_refuses_without_cuda():

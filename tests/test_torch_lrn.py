@@ -89,6 +89,27 @@ def jax_lrn(tmp_path_factory):
     return dict(np.load(tmp / "y.npz"))
 
 
+def _cpu_state(x: torch.Tensor) -> str:
+    """The CPU settings and the plain LRN's float32 intermediates at the
+    time of a check, each against numpy's float32 (the squares and window
+    sums bit for bit, the rsqrt by its largest relative error): what to
+    read when the float64 check fails."""
+    xn = x.float().numpy()
+    sq = (x.float() * x.float()).numpy()
+    win = torch.nn.functional.pad(torch.from_numpy(sq), (2, 2))
+    win = sum(win[..., i:i + xn.shape[-1]] for i in range(5)).numpy()
+    padded = np.pad(xn * xn, [(0, 0)] * (xn.ndim - 1) + [(2, 2)])
+    s = np.float32(1) + np.float32(2e-5) * win
+    rs = torch.rsqrt(torch.from_numpy(s)).numpy().astype(np.float64)
+    return (f"threads {torch.get_num_threads()}, capability "
+            f"{torch.backends.cpu.get_cpu_capability()}, matmul precision "
+            f"{torch.get_float32_matmul_precision()}, squares off numpy at "
+            f"{int((sq != xn * xn).sum())}, window sums off at "
+            f"{int((win != sum(padded[..., i:i + xn.shape[-1]] for i in range(5))).sum())}, "
+            f"rsqrt max relative error "
+            f"{float(np.max(np.abs(rs * np.sqrt(s.astype(np.float64)) - 1))):.3g}")
+
+
 def _caffe_lrn_f64(x: np.ndarray) -> np.ndarray:
     """x / (1 + 1e-4 / 5 * window sum of x^2)^0.75 in float64."""
     xd = x.astype(np.float64)
@@ -109,8 +130,9 @@ def test_lrn_matches_jax(rng, jax_lrn, dtype, c):
     if dtype == "float32":   # each side against float64: which one moved
         exact = _caffe_lrn_f64(_lrn_input(c))
         for side, y in (("torchfcn", got.numpy()), ("tpufcn", want)):
-            np.testing.assert_allclose(y, exact, rtol=1e-6, atol=0,
-                                       err_msg=f"{side} against float64")
+            np.testing.assert_allclose(
+                y, exact, rtol=1e-6, atol=0,
+                err_msg=f"{side} against float64; {_cpu_state(x)}")
     _assert_close(got, want, dtype)
 
 

@@ -551,8 +551,12 @@ class DeviceCompositePipeline:
 
     def draw(self, n: int) -> SceneDraws:
         """The random values of ``n`` scenes, from the pipeline's
-        generator on its device."""
-        g, dev = self.generator, self.device
+        generator, on the generator's device (the pipeline's own, unless
+        the caller gave it another generator, e.g. a CPU one so that two
+        devices compose the same scenes); ``compose`` takes them on the
+        pipeline's device."""
+        g = self.generator
+        dev = g.device
         S, T = self.S, self.T
 
         def ints(lo, hi, *shape):
