@@ -6,7 +6,7 @@ Run from the repository root:
     python3 chip_smoke.py
 
 Phases, each printing one line; any failure raises and exits non-zero.
-TF32 is off throughout (but for the TF32 trap of phase 8), so the float32
+TF32 is off throughout (but for the TF32 trap of phase 9), so the float32
 plain versions are full float32.
 
 1. device: the card's name and power limit, as nvidia-smi reports them;
@@ -53,7 +53,36 @@ plain versions are full float32.
    launched in that run, the LRN kernels not; the detections must equal
    decode + NMS of the same heads on the CPU.  Prints detections, frames/s
    and latency per batch;
-7. families: the VGG, FCN and ResNet-FPN families.  First, once per
+7. stream: the stream serving surface (``torchfcn.serve``).  The flagship
+   launch graph (a DetectorNode of googlenet_detectnet, bf16, K = 256, the
+   heads biased, micro-batch 8, flush after 50 ms) replays 61 seeded
+   448x448 frames (a part-filled tail) and 16 of 640x480 (a geometry
+   flush): each kernel of the path launched once in every dispatch, every
+   published RectsMsg equal to one built from a direct Detector call on
+   the same padded batch, stamps in order; the googlenet_detectnet_serving
+   graph the same way, the stem tail once a dispatch.  The same graph in
+   float32 on the card and on the CPU on 8 frames: heads within 1e-3, the
+   card's rects equal to decode + NMS on the CPU of its heads.  The LRN
+   kernels and groupRectangles against their plain versions on the inputs
+   of the flagship node's last dispatch: bit-equal and exact.  Timings on
+   the card's name and power limit: node latency percentiles at micro-
+   batch 1 and 8, replay_throughput at micro-batch 8 and 32 over 256
+   frames from host memory, a dispatch's device busy time against its
+   wall time.  The TCP bus: the native broker built from
+   ``torchfcn/netbus/broker.cpp``, a publisher process that imports
+   ``torchfcn.serve.netbus`` alone (no jax; torch only when it unpickles
+   the first RectsMsg) sending 32 raw-encoded frames a micro-batch at a
+   time, the node here on a RemoteTopicBus: rects equal to the in-process
+   run's.  Export: both graphs' Detectors through
+   ``export_detector`` at B = 8, loaded in a fresh process without the
+   model zoo and run on the card: results equal to the Detectors', all
+   four kernels launched.  The tiled fcn32s_seg + point-map graph of
+   ``examples/fcn_point_map.launch.json`` in float32 on a 480x640 frame
+   and a synthetic organized cloud: the card's pmap equal to the CPU's
+   but at a share of values off by one (STREAM_PMAP_OFF_BY_ONE), boxes and
+   clusters equal.  ``torchfcn.entry.entry()``: fn(*args) on the card
+   equals the Detector;
+8. families: the VGG, FCN and ResNet-FPN families.  First, once per
    family, the float32 forward on the card against the CPU (1 frame of
    vgg_pyramid_detectnet at 448x448, 2 of the others), every head within
    1e-4 of its largest magnitude.  Then each detection configuration in
@@ -73,7 +102,7 @@ plain versions are full float32.
    the CPU's, and every other pixel a near-tie on the CPU (top two logits
    within 5 % of the logits' scale in bf16, 30 % in the e5m2 preset, whose
    flipped roundings spread);
-8. train: the input gradients through the lrn and lrn_maxpool custom ops
+9. train: the input gradients through the lrn and lrn_maxpool custom ops
    against autograd through their plain versions on the card, at the main
    path's shapes and with 67 channels, float32 within rtol 1e-6 and bf16
    within 1 ulp; the TF32 trap: with TF32 allowed by the caller, one
@@ -96,7 +125,7 @@ plain versions are full float32.
    (at least one), and which the e5m2 preset loads and serves; then
    vgg_detectnet_train under the
    bounding_box recipe (B = 32, 224x224), printed the same way;
-9. data: training from scenes composed on the card
+10. data: training from scenes composed on the card
    (``torchfcn.data.device_compositor``) from a synthetic crop library (4
    classes, 32 crops with box and ellipse masks, drawn with numpy) on noise
    backgrounds.  One set of draws made on the cpu composes on the cpu and
@@ -119,7 +148,7 @@ plain versions are full float32.
    seed above VAL_MAP_LIMIT after training and below it at step 0, and the
    groupRectangles kernel held against its plain version on the trained
    validator's candidates of one chunk;
-10. gates: the accuracy gates (``torchfcn.train.gates``) at their capture
+11. gates: the accuracy gates (``torchfcn.train.gates``) at their capture
    configurations on the hard benchmark's sources rendered on the host
    (timed): the VGG16 pretrain at its capture shape for
    GATE_PRETRAIN_STEPS steps (its loss at the end below step 1's), its
@@ -134,10 +163,10 @@ plain versions are full float32.
    chunk, the stem tail once an e5m2 scoring chunk; and the gate step's
    device busy time with the LRN ops' plain backward's share.
 
-Then one JSON line of the families' numbers, one of the training runs'
-numbers, one of the data phase's, one of the gates', one JSON line of
-per-kernel numbers (with each kernel's launches per training step, per
-step fed by the compositor, per validation, per gate training step and
+Then one JSON line of the stream phase's numbers, one of the families'
+numbers, one of the training runs' numbers, one of the data phase's, one of the gates', one JSON line of
+per-kernel numbers (with each kernel's launches per dispatch of the
+stream graphs, per training step, per step fed by the compositor, per validation, per gate training step and
 per gate scoring), each kernel's time beside its
 bound (``bound_ms``: the larger of the bytes it must move over 3.35 TB/s
 and its operations over the peak rate of their type, 989 TFLOP/s on the
@@ -156,6 +185,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -745,6 +775,644 @@ def phase_serving(rng, counters, card: str) -> dict:
         f"(median of {REPS}, host clock, uint8 frames from host memory) "
         f"on {card}")
     return launches
+
+
+# the stream phase: the flagship node's micro-batch and deadline; the frames
+# it replays (61 of 448x448, so the tail is part-filled when 16 of 640x480
+# change the geometry); frames over the TCP bus; the timings' frame counts
+STREAM_MICRO_BATCH, STREAM_FLUSH_MS = 8, 50.0
+STREAM_SQUARE, STREAM_CAMERA = 61, 16
+STREAM_TCP_FRAMES = 32
+STREAM_LATENCY_FRAMES, STREAM_THROUGHPUT_FRAMES = 128, 256
+# the pmap of the tiled graph, card against the CPU in float32: the share
+# of values off by one (tests/test_torch_stream.py's PMAP_OFF_BY_ONE)
+STREAM_PMAP_OFF_BY_ONE = 1e-3
+# fcn32s_seg's class-1 score bias in the tiled graph, so that its maps
+# hold regions (tests/test_torch_stream.py lifts it the same way)
+STREAM_SEG_BIAS = 2.6
+RECTS_TOPIC = "/fcn_object_detector/rects"
+
+
+class DispatchLog:
+    """The Detector of a DetectorNode, each call (one dispatch) counted on
+    its own: every kernel's launch count set to 0 before it and read after
+    a synchronize; its padded batch kept with the node's processed count
+    before it, so that each dispatch's real frames are known after the
+    run."""
+
+    def __init__(self, node, counters):
+        self.node, self.det, self.counters = node, node.detector, counters
+        self.launches, self.batches, self.before = [], [], []
+        self.seconds = []
+        node.detector = self
+
+    def __getattr__(self, name):
+        return getattr(self.det, name)
+
+    def __call__(self, frames):
+        self.before.append(self.node.processed)
+        for c in self.counters.values():
+            c.launches = 0
+        t = time.perf_counter()
+        res = self.det(frames)
+        torch.cuda.synchronize()
+        self.seconds.append(time.perf_counter() - t)
+        self.launches.append({k: c.launches for k, c in
+                              self.counters.items()})
+        self.batches.append(np.asarray(frames))
+        return res
+
+    def real(self) -> list:
+        """The real (not padding) frames of each dispatch."""
+        marks = self.before + [self.node.processed]
+        return [b - a for a, b in zip(marks, marks[1:])]
+
+    def per_dispatch(self, what: str, required, absent=()) -> dict:
+        """Launches per dispatch of each kernel; raises unless each kernel
+        of ``required`` launched once in every dispatch and those of
+        ``absent`` never."""
+        for i, row in enumerate(self.launches):
+            if any(row[k] != 1 for k in required) or any(row[k]
+                                                         for k in absent):
+                raise AssertionError(f"{what}: dispatch {i} launched {row}")
+        n = len(self.launches)
+        return {k: sum(r[k] for r in self.launches) / n
+                for k in self.counters}
+
+
+def rects_msgs(dets_per_frame) -> list:
+    """(points, labels, confidences) of each frame's RectsMsg, as
+    DetectorNode builds it from ``DetectionResult.to_lists()``."""
+    return [([p for box, _, _ in dets for p in ((box[0], box[1]),
+                                                (box[2], box[3]))],
+             [lab for _, lab, _ in dets], [c for _, _, c in dets])
+            for dets in dets_per_frame]
+
+
+def stream_graph(model: str, bus=None, **params):
+    """The flagship launch graph, one detector node (``params`` over the
+    flagship's: K = 256, micro-batch 8, flush after 50 ms, bf16 on the
+    card) with the heads biased, and the list of rects it publishes as
+    (stamp, (points, labels, confidences))."""
+    from torchfcn.serve.launch import launch
+    from torchfcn.serve.profile import bias_heads
+    node_params = dict(model=model, max_candidates=K, device="cuda",
+                       micro_batch=STREAM_MICRO_BATCH,
+                       flush_after_ms=STREAM_FLUSH_MS)
+    node_params.update(params)
+    graph = launch({"fcn_object_detector": {
+        "type": "detector", "params": node_params,
+        "remap": {"image": "image"}}}, bus=bus)
+    node = graph.nodes["fcn_object_detector"]
+    bias_heads(node.detector)
+    out = []
+    graph.bus.subscribe(RECTS_TOPIC, lambda m: out.append(
+        (m.stamp, (m.data.points, m.data.labels, m.data.confidences))),
+        queue_size=1 << 20)
+    return graph, node, out
+
+
+def check_node_against_direct(dlog: DispatchLog, out: list, n: int,
+                              what: str) -> int:
+    """Every published RectsMsg equals the one built from a direct Detector
+    call on the same padded batch, exactly, in order with stamps 0..n-1;
+    returns the detections compared."""
+    stamps = [s for s, _ in out]
+    if stamps != [float(i) for i in range(n)]:
+        raise AssertionError(f"{what}: published stamps {stamps[:12]}... "
+                             f"are not 0..{n - 1}")
+    want = []
+    for batch, real in zip(dlog.batches, dlog.real()):
+        want += rects_msgs(dlog.det(batch).to_lists())[:real]
+    got = [m for _, m in out]
+    if got != want:
+        bad = sum(g != w for g, w in zip(got, want))
+        raise AssertionError(f"{what}: {bad} of {n} RectsMsgs differ from "
+                             f"direct Detector calls on the same batches")
+    dets = sum(len(m[1]) for m in got)
+    if dets == 0:
+        raise AssertionError(f"{what}: no detections, nothing was compared")
+    return dets
+
+
+def stream_frames(rng, n: int, hw=(NET, NET)) -> list:
+    return list(rng.integers(0, 256, (n,) + hw + (3,), dtype=np.uint8))
+
+
+def replay_graph(model: str, counters, frames: list, required, absent,
+                 what: str, record: bool = False):
+    """Replay ``frames`` through a flagship graph of ``model``; each
+    published RectsMsg held against direct Detector calls.  Returns (node,
+    dispatch log, numbers, the recorded kernel inputs of the last dispatch
+    where ``record``)."""
+    from torchfcn.models import layers
+    from torchfcn.serve import detector
+    from torchfcn.serve.stream import replay
+    graph, node, out = stream_graph(model)
+    dlog = DispatchLog(node, counters)
+    calls = {"lrn_cuda": [], "lrn_maxpool_cuda": [],
+             "vote_boxes_batched": []}
+    with contextlib.ExitStack() as stack:
+        if record:
+            stack.enter_context(recorded_calls(layers, "lrn_cuda",
+                                               calls["lrn_cuda"]))
+            stack.enter_context(recorded_calls(
+                layers, "lrn_maxpool_cuda", calls["lrn_maxpool_cuda"]))
+            stack.enter_context(recorded_calls(
+                detector, "vote_boxes_batched",
+                calls["vote_boxes_batched"]))
+        t0 = time.perf_counter()
+        processed = replay(node, frames, bus=graph.bus)
+        graph.spin()
+        wall = time.perf_counter() - t0
+    if processed != len(frames):
+        raise AssertionError(f"{what}: {processed} of {len(frames)} frames "
+                             f"processed")
+    per_dispatch = dlog.per_dispatch(what, required, absent)
+    dets = check_node_against_direct(dlog, out, len(frames), what)
+    shapes = sorted({b.shape for b in dlog.batches})
+    log("stream", f"{what}: {len(frames)} frames in {len(dlog.batches)} "
+        f"dispatches of {shapes} (real frames {dlog.real()}), {dets} "
+        f"detections, every RectsMsg equal to direct Detector calls on the "
+        f"same batches; launches per dispatch {per_dispatch}; replay "
+        f"{wall:.2f} s")
+    last = {k: v[-1:] for k, v in calls.items()}
+    return node, dlog, dict(frames=len(frames), dispatches=len(dlog.batches),
+                            real_frames=dlog.real(), detections=dets,
+                            launches_per_dispatch=per_dispatch,
+                            replay_s=wall), last
+
+
+def graph_against_cpu(rng) -> dict:
+    """The flagship graph in float32 on the card and on the CPU, 8 frames
+    each: the heads within 1e-3 (phase_parity's bound), the card node's
+    rects equal to decode + NMS on the CPU of the card's heads
+    (check_against_cpu's rule), the CPU node's equal to its Detector's."""
+    from torchfcn.serve.stream import replay
+    frames = stream_frames(rng, STREAM_MICRO_BATCH)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        graph, node, out = stream_graph("googlenet_detectnet", device=device,
+                                        dtype="float32")
+        replay(node, frames, bus=graph.bus)
+        graph.spin()
+        runs[device] = (node.detector, [m for _, m in out])
+    card, cpu = runs["cuda"][0], runs["cpu"][0]
+    x = np.stack(frames)
+    with torch.inference_mode():
+        heads = card._forward(torch.as_tensor(x, device="cuda"))
+        cpu_heads = cpu._forward(torch.from_numpy(x))
+        diff = max(float((g.cpu() - c).abs().max())
+                   for g, c in zip(heads, cpu_heads))
+        want = cpu._decode_nms(*(h.cpu() for h in heads), x.shape[1:3])
+    if not diff <= 1e-3:
+        raise AssertionError(f"stream f32 graph: heads differ by {diff}")
+    if runs["cuda"][1] != rects_msgs(want.to_lists()):
+        raise AssertionError("stream f32 graph: the card node's rects differ "
+                             "from decode+NMS on the cpu of its heads")
+    if runs["cpu"][1] != rects_msgs(cpu(x).to_lists()):
+        raise AssertionError("stream f32 graph: the cpu node's rects differ "
+                             "from its Detector's")
+    dets = sum(len(m[1]) for m in runs["cuda"][1])
+    if dets == 0:
+        raise AssertionError("stream f32 graph: no detections")
+    log("stream", f"f32 graph card vs cpu on {len(frames)} frames: heads "
+        f"max|gpu-cpu| {diff:.3g} (atol 1e-3); the card node's {dets} "
+        f"detections equal decode+NMS on the cpu of its heads")
+    return dict(frames=len(frames), heads_max_abs_diff=diff, detections=dets)
+
+
+def stream_kernels(calls: dict) -> dict:
+    """The kernels against their plain versions on the inputs of the
+    flagship node's last dispatch: groupRectangles exactly, both LRN
+    kernels bit-equal (bf16)."""
+    out = check_recorded_lrn({k: calls[k] for k in ("lrn_cuda",
+                                                    "lrn_maxpool_cuda")},
+                             STREAM_MICRO_BATCH, "stream",
+                             "the node's last dispatch")
+    for name, row in out.items():
+        if row["bit_equal_share"] != 1.0:
+            raise AssertionError(f"stream: {name} not bit-equal to its plain "
+                                 f"version on the node's last dispatch")
+    # the groupRectangles kernel's inputs, as vote_boxes_batched passes them
+    args = dict(calls["vote_boxes_batched"][0])
+    rects = args["propose_boxes"].float().contiguous()
+    valid = args["valid"].contiguous()
+    out["group_rects"] = check_group_rects(
+        rects, valid, "the node's last dispatch", timed=False,
+        group_threshold=args["group_threshold"], eps=args["eps"])
+    out["group_rects"]["shape"] = list(rects.shape)
+    out["group_rects"]["valid_candidates"] = int(valid.sum())
+    return out
+
+
+def stream_timings(det, rng, card: str) -> dict:
+    """Node latency percentiles at micro-batch 1 and 8, replay_throughput
+    at micro-batch 8 and 32 from host memory, and the device busy time of
+    one dispatch of 8 frames against its host-clock wall time."""
+    from torchfcn.serve.bus import TopicBus
+    from torchfcn.serve.stream import DetectorNode, replay, replay_throughput
+    frames = stream_frames(rng, STREAM_THROUGHPUT_FRAMES)
+    latency = {}
+    for mb in (1, STREAM_MICRO_BATCH):
+        bus = TopicBus()
+        node = DetectorNode(bus, detector=det, micro_batch=mb,
+                            flush_after_ms=STREAM_FLUSH_MS if mb > 1
+                            else None)
+        replay(node, frames[:2 * mb], bus=bus)            # warm-up
+        node.latencies_ms.clear()
+        replay(node, frames[:STREAM_LATENCY_FRAMES], bus=bus)
+        latency[mb] = node.latency_stats()
+    throughput = {mb: replay_throughput(det, frames, micro_batch=mb)
+                  for mb in (STREAM_MICRO_BATCH, 32)}
+    batch = np.stack(frames[:STREAM_MICRO_BATCH])
+    busy = busy_ms(lambda: det(batch))
+    wall = batch_latency(det, batch) * 1e3
+    fmt = ", ".join(f"micro-batch {mb}: p50 {s['p50_ms']:.3f} p90 "
+                    f"{s['p90_ms']:.3f} p99 {s['p99_ms']:.3f} ms"
+                    for mb, s in latency.items())
+    log("stream", f"on {card}: node latency over {STREAM_LATENCY_FRAMES} "
+        f"frames ({fmt}); replay_throughput over "
+        f"{STREAM_THROUGHPUT_FRAMES} frames from host memory: " + ", ".join(
+            f"micro-batch {mb} {t['fps']:.1f} frames/s" for mb, t in
+            throughput.items()) + f"; one dispatch of {STREAM_MICRO_BATCH}: "
+        f"device busy {busy:.3f} ms of {wall:.3f} ms wall "
+        f"({100 * (1 - busy / wall):.1f} % idle)")
+    return dict(latency={str(k): v for k, v in latency.items()},
+                throughput={str(k): v for k, v in throughput.items()},
+                busy_ms_per_dispatch=busy, wall_ms_per_dispatch=wall)
+
+
+PUBLISHER = r"""
+import json, sys, time
+import numpy as np
+import torchfcn.serve.netbus as netbus
+assert "jax" not in sys.modules and "torch" not in sys.modules
+address, n, batch, seed = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), \
+    int(sys.argv[4])
+frames = np.random.default_rng(seed).integers(0, 256, (n, 448, 448, 3),
+                                              dtype=np.uint8)
+bus = netbus.RemoteTopicBus(address)
+got = []
+bus.subscribe("/fcn_object_detector/rects", lambda m: got.append(m.stamp),
+              queue_size=n)
+time.sleep(0.5)
+# each frame raw-encoded (an ndarray payload, no pickle)
+assert netbus._encode_payload(frames[0])[0][0] == netbus._ENC_NDARRAY
+t0 = time.perf_counter()
+sent, round_trips, torch_after = [], [], []
+for start in range(0, n, batch):
+    t = time.perf_counter()
+    for i in range(start, min(n, start + batch)):
+        bus.publish("image", frames[i], stamp=float(i))
+    sent.append(time.perf_counter() - t)
+    deadline = time.time() + 60
+    while len(got) < min(n, start + batch) and time.time() < deadline:
+        bus.spin_once()
+        time.sleep(0.0005)
+    round_trips.append(time.perf_counter() - t)
+    # unpickling the first RectsMsg imports torchfcn.serve.stream, which
+    # defines it (and so torch): that lands in the first round trip
+    torch_after.append("torch" in sys.modules)
+wall = time.perf_counter() - t0
+bus.close()
+print(json.dumps({"stamps": got, "seconds": wall, "send_s": sent,
+                  "round_trip_s": round_trips, "torch_after": torch_after,
+                  "jax_imported": "jax" in sys.modules}))
+"""
+
+
+def stream_tcp(counters, rng_seed: int, local_out: list) -> dict:
+    """The native broker built from torchfcn/netbus/broker.cpp; a publisher
+    process (torchfcn.serve.netbus alone) sends STREAM_TCP_FRAMES frames,
+    a micro-batch at a time; the flagship node runs here on a
+    RemoteTopicBus.  Its rects must equal ``local_out``, the in-process
+    run's on the same frames."""
+    from torchfcn.serve.netbus import RemoteTopicBus, start_broker
+    handle = start_broker(native="yes")
+    proc = None
+    try:
+        bus = RemoteTopicBus(handle.address)
+        graph, node, out = stream_graph("googlenet_detectnet", bus=bus)
+        dlog = DispatchLog(node, counters)
+        time.sleep(0.3)                   # the node's SUB reaches the broker
+        proc = subprocess.Popen(
+            [sys.executable, "-c", PUBLISHER, handle.address,
+             str(STREAM_TCP_FRAMES), str(STREAM_MICRO_BATCH), str(rng_seed)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=dict(os.environ, PYTHONPATH=os.path.dirname(
+                os.path.abspath(__file__))))
+        deadline = time.time() + 120
+        while node.processed < STREAM_TCP_FRAMES and proc.poll() is None \
+                and time.time() < deadline:
+            graph.spin()
+            time.sleep(0.001)
+        stdout, stderr = proc.communicate(timeout=60)
+        graph.spin()
+        bus.close()
+    finally:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        handle.stop()
+    if proc.returncode != 0:
+        raise AssertionError(f"stream tcp: the publisher failed:\n{stderr}")
+    pub = json.loads(stdout.strip().splitlines()[-1])
+    if pub["jax_imported"] or sorted(pub["stamps"]) != [
+            float(i) for i in range(STREAM_TCP_FRAMES)]:
+        raise AssertionError(f"stream tcp: the publisher saw {pub}")
+    if out != local_out:
+        raise AssertionError("stream tcp: the node's rects over the TCP bus "
+                             "differ from the in-process run's")
+    per_dispatch = dlog.per_dispatch("stream tcp",
+                                     ("lrn", "lrn_maxpool", "group_rects"))
+    log("stream", f"tcp bus (native broker, publisher process without jax; "
+        f"torch imported to unpickle the first RectsMsg: "
+        f"{pub['torch_after'][0]}): {STREAM_TCP_FRAMES} raw-encoded frames, "
+        f"a micro-batch at a time, in {pub['seconds']:.3f} s; per micro-"
+        f"batch: sent in "
+        + ", ".join(f"{t * 1e3:.1f}" for t in pub["send_s"]) + " ms, rects "
+        "back after " + ", ".join(f"{t * 1e3:.1f}" for t in
+                                  pub["round_trip_s"])
+        + " ms, of which the node's Detector call "
+        + ", ".join(f"{t * 1e3:.1f}" for t in dlog.seconds)
+        + f" ms; {len(dlog.batches)} dispatches; rects equal to the "
+        f"in-process run's")
+    return dict(frames=STREAM_TCP_FRAMES, dispatches=len(dlog.batches),
+                seconds=pub["seconds"], send_s=pub["send_s"],
+                round_trip_s=pub["round_trip_s"],
+                torch_imported_by_batch=pub["torch_after"],
+                dispatch_s=dlog.seconds,
+                launches_per_dispatch=per_dispatch)
+
+
+LOADER = r"""
+import json, sys, time
+import numpy as np
+import torch
+t0 = time.perf_counter()
+from torchfcn.serve.export import load_exported
+from torchfcn.ops.cuda import build
+from torchfcn.ops.cuda.group_rects import group_rectangles_cuda
+from torchfcn.ops.cuda.lrn import lrn_cuda
+from torchfcn.ops.cuda.lrn_pool import lrn_maxpool_cuda
+from torchfcn.ops.cuda.stem import stem_tail_cuda
+counters = {"group_rects": group_rectangles_cuda, "lrn": lrn_cuda,
+            "lrn_maxpool": lrn_maxpool_cuda, "stem_tail": stem_tail_cuda}
+build.library()
+out = {}
+frames = torch.from_numpy(np.load(sys.argv[1] + "/frames.npy")).cuda()
+for name in sys.argv[2:]:
+    t = time.perf_counter()
+    fn = load_exported(open(f"{sys.argv[1]}/{name}.pt2", "rb").read())
+    load_s = time.perf_counter() - t
+    params = torch.load(f"{sys.argv[1]}/{name}.params.pt", map_location="cuda")
+    for c in counters.values():
+        c.launches = 0
+    res = fn(params, frames)
+    torch.cuda.synchronize()
+    torch.save([t.cpu() for t in res], f"{sys.argv[1]}/{name}.result.pt")
+    out[name] = dict(load_s=load_s, launches={k: c.launches for k, c in
+                                              counters.items()})
+out["zoo_imported"] = "torchfcn.models" in sys.modules
+out["jax_imported"] = "jax" in sys.modules
+out["seconds"] = time.perf_counter() - t0
+print(json.dumps(out))
+"""
+
+
+def stream_export(dets: dict, rng) -> dict:
+    """Each Detector of ``dets`` (name -> Detector) exported at B = 8 with
+    export_detector, the bytes loaded in a fresh process that runs them on
+    the card: each result must equal its Detector's on the same frames,
+    the flagship's launch the LRN kernels and groupRectangles, the
+    serving preset's the stem tail and groupRectangles."""
+    import tempfile
+
+    from torchfcn.serve.export import export_detector
+    frames = np.stack(stream_frames(rng, STREAM_MICRO_BATCH))
+    sizes, export_s = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        np.save(f"{tmp}/frames.npy", frames)
+        for name, det in dets.items():
+            t = time.perf_counter()
+            art = export_detector(det, STREAM_MICRO_BATCH)
+            export_s[name] = time.perf_counter() - t
+            sizes[name] = len(art)
+            with open(f"{tmp}/{name}.pt2", "wb") as f:
+                f.write(art)
+            torch.save({k: v.detach() for k, v in det.forward_fn()[1].items()},
+                       f"{tmp}/{name}.params.pt")
+        proc = subprocess.run(
+            [sys.executable, "-c", LOADER, tmp, *dets], capture_output=True,
+            text=True, timeout=300, env=dict(os.environ, PYTHONPATH=os.path.
+                                             dirname(os.path.abspath(
+                                                 __file__))))
+        if proc.returncode != 0:
+            raise AssertionError(f"stream export: the loader failed:\n"
+                                 f"{proc.stderr[-4000:]}")
+        loaded = json.loads(proc.stdout.strip().splitlines()[-1])
+        results = {name: torch.load(f"{tmp}/{name}.result.pt")
+                   for name in dets}
+    if loaded["zoo_imported"] or loaded["jax_imported"]:
+        raise AssertionError(f"stream export: the loader imported the zoo or "
+                             f"jax: {loaded}")
+    required = {"googlenet_detectnet": ("lrn", "lrn_maxpool", "group_rects"),
+                "googlenet_detectnet_serving": ("stem_tail", "group_rects")}
+    launched = set()
+    for name, det in dets.items():
+        want = det(frames)
+        if not want.valid.any():
+            raise AssertionError(f"stream export {name}: no detections")
+        for field, got in zip(want._fields, results[name]):
+            if not torch.equal(got, getattr(want, field).cpu()):
+                raise AssertionError(f"stream export {name}: {field} differs "
+                                     f"from the Detector's")
+        ran = loaded[name]["launches"]
+        if any(ran[k] == 0 for k in required[name]):
+            raise AssertionError(f"stream export {name}: launched {ran}")
+        launched |= {k for k, v in ran.items() if v}
+    if launched != {"lrn", "lrn_maxpool", "group_rects", "stem_tail"}:
+        raise AssertionError(f"stream export: launched only {launched}")
+    log("stream", "export: " + ", ".join(
+        f"{name} {sizes[name]} bytes, export {export_s[name]:.2f} s, load "
+        f"{loaded[name]['load_s']:.2f} s, launches "
+        f"{loaded[name]['launches']}" for name in dets) + f"; the fresh "
+        f"process took {loaded['seconds']:.2f} s without the zoo or jax; "
+        f"each result equal to its Detector's")
+    return {name: dict(bytes=sizes[name], export_s=export_s[name],
+                       load_s=loaded[name]["load_s"],
+                       launches=loaded[name]["launches"]) for name in dets}
+
+
+def tiled_pointmap_graph(rng, card: str) -> dict:
+    """The topology of examples/fcn_point_map.launch.json: the tiled
+    fcn32s_seg node and the point-map node, float32, on the card and on
+    the CPU, on one 480x640 frame with a synthetic organized cloud, object
+    mask and plane coefficients.  The card's pmap must equal the CPU's but
+    at a share of at most STREAM_PMAP_OFF_BY_ONE values off by one, its
+    boxes and the clusters equal."""
+    from torchfcn.serve.launch import launch
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "examples", "fcn_point_map.launch.json")) as f:
+        spec = json.load(f)
+    frame = rng.integers(0, 256, (480, 640, 3), dtype=np.uint8)
+    frame[120:360, 160:480] //= 3
+    h, w = frame.shape[:2]
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float32)
+    # points 2 mm apart on a plane 1 m away, an object of 120 x 120 points
+    # (under the node's 25,000-point cluster limit) 20 cm in front of it
+    cloud = np.stack([xs * 0.002, ys * 0.002, np.ones_like(xs)], -1)
+    cloud[180:300, 260:380, 2] = 0.8
+    mask = np.zeros((h, w), np.uint8)
+    mask[180:300, 260:380] = 255
+    remap = spec["fcn_point_map"]["remap"]
+    runs = {}
+    for device in ("cuda", "cpu"):
+        s = json.loads(json.dumps(spec))
+        s["fcn_object_detector"]["params"].update(device=device,
+                                                  dtype="float32")
+        graph = launch(s)
+        seg = graph.nodes["fcn_object_detector"].tiled
+        with torch.no_grad():
+            seg.model.score_fr_6.bias[1] = STREAM_SEG_BIAS
+        got = {}
+        for topic in ("/fcn_object_detector/pmap", RECTS_TOPIC,
+                      "/output/indices", "/output/points"):
+            graph.bus.subscribe(topic, lambda m, t=topic: got.setdefault(
+                t, m.data), queue_size=4)
+        t0 = time.perf_counter()
+        graph.bus.publish("image", frame, stamp=0.0)
+        graph.spin()
+        graph.bus.publish(remap["cloud"], cloud, stamp=0.0)
+        graph.bus.publish(remap["mask"], mask, stamp=0.01)
+        graph.bus.publish(remap["coefficients"], np.float32([0, 0, 1, -1]),
+                          stamp=0.02)
+        graph.spin(3)
+        got["seconds"] = time.perf_counter() - t0
+        if graph.nodes["fcn_point_map"].processed != 1:
+            raise AssertionError(f"tiled graph on {device}: the point-map "
+                                 f"node did not run")
+        runs[device] = got
+    on_card, cpu = runs["cuda"], runs["cpu"]
+    pmap, want = on_card["/fcn_object_detector/pmap"], \
+        cpu["/fcn_object_detector/pmap"]
+    diff = np.abs(pmap.astype(int) - want.astype(int))
+    off = float((diff > 0).mean())
+    if diff.max() > 1 or off > STREAM_PMAP_OFF_BY_ONE:
+        raise AssertionError(f"tiled graph: pmap differs from the cpu's by "
+                             f"up to {diff.max()} at {off:.3g} of the values")
+    if (pmap > 0).mean() < 0.01:
+        raise AssertionError("tiled graph: the pmap holds no regions")
+    rects, cpu_rects = on_card[RECTS_TOPIC], cpu[RECTS_TOPIC]
+    if (rects.points, rects.labels) != (cpu_rects.points, cpu_rects.labels):
+        raise AssertionError("tiled graph: boxes differ from the cpu's")
+    idx, cpu_idx = on_card["/output/indices"], cpu["/output/indices"]
+    if len(idx) == 0 or len(idx) != len(cpu_idx) or not all(
+            np.array_equal(a, b) for a, b in zip(idx, cpu_idx)):
+        raise AssertionError(f"tiled graph: clusters differ from the cpu's "
+                             f"({len(idx)} against {len(cpu_idx)})")
+    log("stream", f"tiled fcn32s_seg + point_map graph f32, 480x640 on "
+        f"{card}: pmap card vs cpu off by one at {off:.3g} (bound "
+        f"{STREAM_PMAP_OFF_BY_ONE}), {len(rects.labels)} boxes and "
+        f"{len(idx)} clusters ({sum(map(len, idx))} points) equal; "
+        f"{runs['cuda']['seconds']:.2f} s on the card, "
+        f"{runs['cpu']['seconds']:.2f} s on the cpu")
+    return dict(pmap_off_by_one=off, boxes=len(rects.labels),
+                clusters=len(idx), card_s=runs["cuda"]["seconds"],
+                cpu_s=runs["cpu"]["seconds"])
+
+
+def stream_entry(counters) -> dict:
+    """torchfcn.entry.entry(): fn(*args) on the card equals the flagship
+    Detector, on its zero frames and on seeded frames with the heads
+    biased."""
+    from torchfcn.entry import entry
+    from torchfcn.serve.detector import Detector
+    from torchfcn.serve.profile import bias_heads
+    fn, (params, frames) = entry()
+    det = Detector("googlenet_detectnet", max_candidates=K,
+                   dtype=torch.bfloat16, rng_seed=SEED, device="cuda")
+    for c in counters.values():
+        c.launches = 0
+    res = fn(params, frames)
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    if frames.device.type != "cuda" or tuple(frames.shape) != (
+            BATCH, NET, NET, 3):
+        raise AssertionError(f"entry: frames {tuple(frames.shape)} on "
+                             f"{frames.device}")
+    assert_same_result(res, det(frames), "entry on its zero frames")
+    bias_heads(det)
+    x = torch.as_tensor(np.random.default_rng(SEED + 10).integers(
+        0, 256, (BATCH, NET, NET, 3), dtype=np.uint8), device="cuda")
+    biased = dict(params, **{k: v for k, v in det.model.state_dict().items()
+                             if k.startswith(("cvg.", "bbox."))})
+    res = fn(biased, x)
+    assert_same_result(res, det(x), "entry on seeded frames")
+    if not res.valid.any() or any(launches[k] == 0 for k in
+                                  ("lrn", "lrn_maxpool", "group_rects")):
+        raise AssertionError(f"entry: {int(res.valid.sum())} detections, "
+                             f"launches {launches}")
+    log("stream", f"entry(): fn(*args) on the card equals the Detector "
+        f"({int(res.valid.sum())} detections on seeded frames); launches "
+        f"{launches}")
+    return dict(detections=int(res.valid.sum()), launches=launches)
+
+
+def phase_stream(rng, counters, card: str) -> dict:
+    """The stream serving surface on the card (the module docstring's phase
+    7); returns its numbers."""
+    t_phase = time.perf_counter()
+    seconds = {}
+    t = time.perf_counter()
+    square = stream_frames(rng, STREAM_SQUARE)
+    camera = stream_frames(rng, STREAM_CAMERA, (480, 640))
+    flagship = ("lrn", "lrn_maxpool", "group_rects")
+    node, dlog, main, calls = replay_graph(
+        "googlenet_detectnet", counters, square + camera, flagship,
+        ("stem_tail",), "flagship graph googlenet_detectnet bf16 K=256",
+        record=True)
+    serving_node, _, serving, _ = replay_graph(
+        "googlenet_detectnet_serving", counters, square + camera,
+        ("stem_tail", "group_rects"), ("lrn", "lrn_maxpool"),
+        "serving graph googlenet_detectnet_serving e5m2")
+    seconds["graphs"] = time.perf_counter() - t
+    t = time.perf_counter()
+    cpu = graph_against_cpu(rng)
+    seconds["cpu"] = time.perf_counter() - t
+    kernels = stream_kernels(calls)
+    det = dlog.det
+    t = time.perf_counter()
+    timings = stream_timings(det, rng, card)
+    seconds["timings"] = time.perf_counter() - t
+
+    # the TCP bus against the in-process run on the same frames
+    t = time.perf_counter()
+    tcp_seed = SEED + 11
+    from torchfcn.serve.stream import replay
+    graph, local_node, local_out = stream_graph("googlenet_detectnet")
+    replay(local_node, stream_frames(np.random.default_rng(tcp_seed),
+                                     STREAM_TCP_FRAMES), bus=graph.bus)
+    graph.spin()
+    tcp = stream_tcp(counters, tcp_seed, local_out)
+    seconds["tcp"] = time.perf_counter() - t
+    t = time.perf_counter()
+    export = stream_export({"googlenet_detectnet": det,
+                            "googlenet_detectnet_serving":
+                                serving_node.detector.det}, rng)
+    seconds["export"] = time.perf_counter() - t
+    t = time.perf_counter()
+    tiled = tiled_pointmap_graph(rng, card)
+    seconds["tiled"] = time.perf_counter() - t
+    entry = stream_entry(counters)
+    seconds["phase"] = time.perf_counter() - t_phase
+    log("stream", f"phase took {seconds['phase']:.1f} s: " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in seconds.items() if k != "phase"))
+    return dict(flagship=main, serving=serving, f32_against_cpu=cpu,
+                against_plain=kernels, timings=timings, tcp=tcp,
+                export=export, tiled_pointmap=tiled, entry=entry,
+                seconds=seconds)
 
 
 # the families phase: (model, model_kwargs) at B = 8 on frames of the
@@ -2404,6 +3072,7 @@ def main() -> int:
     rows["group_rects"].update(row, library_ms=None)
     counters["stem_tail"] = stem_tail_cuda
     launches["stem_tail"] = phase_serving(rng, counters, card)["stem_tail"]
+    stream = phase_stream(rng, counters, card)
     families, big = phase_families(rng, counters, card)
     rows["group_rects"].update(big)
     train = phase_train(rng, counters, card)
@@ -2423,6 +3092,9 @@ def main() -> int:
     composed_step = data["train"]["from_pipeline"]["launches_per_step"]
     kernels = [dict(name=name, route="cuda", source=meta[name][0],
                     replaces=meta[name][1], launches=launches[name],
+                    stream_launches_per_dispatch={
+                        graph: stream[graph]["launches_per_dispatch"][name]
+                        for graph in ("flagship", "serving")},
                     train_launches_per_step=per_step[name] / (
                         TRAIN_WARMUP + TRAIN_STEPS),
                     composed_train_launches_per_step=composed_step[name],
@@ -2435,6 +3107,7 @@ def main() -> int:
                         tag: n[name] for tag, n in
                         gate["detection"]["scoring_launches"].items()},
                     **rows[name]) for name in counters]
+    print(json.dumps({"card": card, "stream": stream}), flush=True)
     print(json.dumps({"card": card, "families": families}), flush=True)
     print(json.dumps({"card": card, "train": train}), flush=True)
     print(json.dumps({"card": card, "data": data}), flush=True)

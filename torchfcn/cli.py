@@ -1,12 +1,28 @@
-"""Command-line interface of the port (``tpufcn/cli.py``), so far its
-``gates`` and ``pretrain`` subcommands, with the JAX package's flags.
-Each prints one JSON line; progress goes to stderr.
+"""Command-line interface of the port (``tpufcn/cli.py``), with the JAX
+package's flags plus ``--device``.  Subcommands so far:
 
+  detect    run the detector over image files (8-bit PNG)
+  replay    stream frame files through the detector node
+            (``--micro-batch``: the batched throughput mode)
+  launch    build a node graph from a JSON launch spec and stream frames
+            through it, in one process or across processes (``--bus``)
+  bus       run the cross-process topic broker
+  export    the serving pipeline as a ``torch.export`` artifact
+  profile   per-kernel device time of the serving pipeline or a train step
+  pointmap  build the C++ point-map library
+  gates     the tracked accuracy gates
+  pretrain  the VGG16 backbone pretrain
+
+Each prints JSON lines on stdout, as tpufcn's do; progress goes to stderr.
+Everything runs on the card (``--device cuda``, the default) or on the
+CPU (``--device cpu``).  Not ported yet (ROADMAP Queue 1): ``--video``
+(with tpufcn's ``--video-stride`` and ``--max-frames``), ``--overlay-dir``
+and the other subcommands.
+
+    python -m torchfcn.cli detect frame.png --model googlenet_detectnet
+    python -m torchfcn.cli launch examples/fcn_point_map.launch.json \
+        --frames a.png b.png
     python -m torchfcn.cli gates --family fcn32s
-    python -m torchfcn.cli pretrain --out vgg16.caffemodel --steps 1500
-
-Both run on the card (``--device cuda``, the default) or, slowly, on the
-CPU (``--device cpu``).
 """
 
 from __future__ import annotations
@@ -14,6 +30,7 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+import time
 
 
 def _log(msg: str) -> None:
@@ -46,6 +63,223 @@ def _cmd_pretrain(args):
                          lr=args.lr, seed=args.seed, log=_log,
                          device=args.device)
     print(json.dumps(res))
+
+
+VIDEO_MISSING = ("--video (camera-recording frames) is not ported yet: "
+                 "ROADMAP Queue 1, video.py")
+
+
+def _read_frames(paths):
+    """(path, BGR frame) of each readable PNG; the others are reported on
+    stderr and skipped, as tpufcn skips what cv2 cannot read."""
+    from torchfcn.data.imageio import imread
+    for path in paths:
+        try:
+            yield path, imread(path)
+        except (OSError, ValueError) as e:
+            print(f"{path}: unreadable ({e})", file=sys.stderr)
+
+
+def _detector_node(args, **params):
+    from torchfcn.serve.bus import TopicBus
+    from torchfcn.serve.launch import _make_detector
+    params = dict(model=args.model, pretrained_weights=args.weights,
+                  device=args.device, **params)
+    return _make_detector(TopicBus(), {k: v for k, v in params.items()
+                                       if v is not None}, {})
+
+
+def _cmd_detect(args):
+    if args.overlay_dir:
+        from torchfcn.serve.stream import OVERLAY_MISSING
+        raise NotImplementedError(OVERLAY_MISSING)
+    node = _detector_node(args, detection_threshold=args.threshold,
+                          min_boxes=args.min_boxes, nms_eps=args.nms_eps,
+                          manifest=args.manifest)
+    names = node.names or []
+    for path, img in _read_frames(args.images):
+        dets = node.detector(img[None]).to_lists()[0]
+        print(json.dumps({"image": path, "detections": [
+            {"box": [int(v) for v in box], "label": label,
+             "name": (names[label] if label < len(names)
+                      else f"object_{label}"),
+             "confidence": conf}
+            for box, label, conf in dets]}))
+
+
+def _cmd_replay(args):
+    """Frame files stream through the topic bus, one per stamp; with
+    ``--micro-batch`` the batched throughput mode instead."""
+    if args.video:
+        raise NotImplementedError(VIDEO_MISSING)
+    frames = [img for _, img in _read_frames(args.images)]
+    if not frames:
+        raise SystemExit("no readable frames")
+    if args.micro_batch > 0:
+        from torchfcn.serve.stream import replay_throughput
+        det = _detector_node(args).detector
+        stats = replay_throughput(det, frames,
+                                  micro_batch=min(args.micro_batch,
+                                                  len(frames)))
+        print(json.dumps(stats))
+        return
+
+    from torchfcn.serve.launch import launch
+    from torchfcn.serve.stream import replay
+    params = {"model": args.model, "device": args.device}
+    if args.weights:
+        params["pretrained_weights"] = args.weights
+    graph = launch({"fcn_object_detector": {
+        "type": "detector", "params": params,
+        "remap": {"image": "image"}}})
+    rects = []
+    graph.bus.subscribe("/fcn_object_detector/rects",
+                        lambda m: rects.append(m.data), queue_size=10**6)
+    node = graph.nodes["fcn_object_detector"]
+    n = replay(node, frames, bus=graph.bus)
+    for i, r in enumerate(rects):
+        print(json.dumps({"frame": i, "detections": len(r.labels)}))
+    print(json.dumps({"frames_processed": n}))
+
+
+def _cmd_export(args):
+    """The serving pipeline (preprocess -> forward -> decode -> NMS) as a
+    ``torch.export`` program; the weights stay outside it
+    (``torchfcn/serve/export.py``)."""
+    from torchfcn.serve.export import export_detector
+    det = _detector_node(args).detector
+    art = export_detector(det, args.batch)
+    with open(args.out, "wb") as f:
+        f.write(art)
+    print(json.dumps({"out": args.out, "bytes": len(art),
+                      "batch": args.batch, "device": args.device}))
+
+
+def _cmd_launch(args):
+    """Build a node graph from a JSON spec (node types, params, remaps: see
+    ``torchfcn/serve/launch.py`` and ``examples/*.launch.json``) and stream
+    frames through it.  ``--device`` goes to every node that does not set
+    its own.  With ``--bus tcp://host:port`` the graph attaches to a broker
+    (``cli bus``), and ``--nodes`` runs a subset of the spec in this
+    process: together they split one launch file across processes."""
+    from torchfcn.serve.launch import launch
+
+    if args.video:
+        raise NotImplementedError(VIDEO_MISSING)
+    with open(args.graph) as f:
+        spec = json.load(f)
+    if args.nodes:
+        wanted = [n.strip() for n in args.nodes.split(",") if n.strip()]
+        missing = [n for n in wanted if n not in spec]
+        if missing:
+            raise SystemExit(f"--nodes not in spec: {', '.join(missing)}")
+        spec = {n: spec[n] for n in wanted}
+    for node in spec.values():
+        if node.get("type") == "detector":
+            node["params"] = {"device": args.device,
+                              **(node.get("params") or {})}
+    bus = None
+    if args.bus:
+        from torchfcn.serve.netbus import RemoteTopicBus
+        bus = RemoteTopicBus(args.bus)
+    graph = launch(spec, bus=bus)
+    published = 0
+    if args.frames:
+        for i, (_, img) in enumerate(_read_frames(args.frames)):
+            graph.bus.publish(args.topic, img, stamp=float(i))
+            graph.spin()
+            published += 1
+        for node in graph.nodes.values():
+            if hasattr(node, "flush"):
+                node.flush()     # part-filled micro-batches at stream end
+        graph.spin()             # deliver what the flush published
+    elif args.serve is not None:
+        # a node-only process on a remote bus: spin until the time is up
+        # (or until SIGINT with 0)
+        deadline = time.time() + args.serve if args.serve > 0 else None
+        try:
+            while deadline is None or time.time() < deadline:
+                graph.spin()
+                time.sleep(0.005)
+        except KeyboardInterrupt:
+            pass
+    else:
+        graph.spin(args.spin)
+    print(json.dumps({
+        "nodes": sorted(graph.nodes),
+        "frames_published": published,
+        "processed": {name: getattr(node, "processed", None)
+                      for name, node in graph.nodes.items()}}))
+
+
+def _cmd_bus(args):
+    """Run the cross-process topic broker in the foreground: node processes
+    attach with ``cli launch --bus tcp://host:port``."""
+    import signal
+    from torchfcn.serve.netbus import start_broker
+    handle = start_broker(port=args.port,
+                          native="no" if args.python else "auto",
+                          max_outbox=args.max_outbox)
+    kind = "python" if handle._proc is None else "native"
+    print(json.dumps({"address": handle.address, "broker": kind}),
+          flush=True)
+    stop = {"flag": False}
+
+    def _sig(_s, _f):
+        stop["flag"] = True
+    signal.signal(signal.SIGINT, _sig)
+    signal.signal(signal.SIGTERM, _sig)
+    try:
+        while not stop["flag"]:
+            if handle._proc is not None and handle._proc.poll() is not None:
+                raise SystemExit("broker process exited")
+            time.sleep(0.2)
+    finally:
+        handle.stop()
+
+
+def _cmd_profile(args):
+    """Per-entry time of the serving pipeline (or, with ``--train``, a
+    train step) of each ``--model`` over ``--iters`` calls under
+    ``torch.profiler`` (``torchfcn/serve/profile.py``): device time of
+    every kernel and copy on the card, operator self time on the CPU."""
+    import os
+    import subprocess
+
+    from torchfcn.serve.profile import DEFAULT_MODELS, profile_path
+
+    card = None
+    if args.device != "cpu":
+        card = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.splitlines()[0]
+    models = args.model or DEFAULT_MODELS
+    for model in models:
+        logdir = (os.path.join(args.logdir, model)
+                  if args.logdir and len(models) > 1 else args.logdir)
+        r = profile_path(model, device=args.device, batch=args.batch,
+                         iters=args.iters, train=args.train,
+                         max_candidates=args.max_candidates, logdir=logdir)
+        ops = r["ops"][:args.top] if args.top else r["ops"]
+        if args.json:
+            print(json.dumps({**r, "card": card, "ops": ops}))
+            continue
+        busy = r["total_device_us"] / 1e3 / r["iters"]
+        print(f"{model} [{r['mode']}]  batch {r['batch']}  x{r['iters']} "
+              f"calls on {card or 'cpu'}: "
+              f"{'device busy' if card else 'operator time'} {busy:.3f} ms of "
+              f"{r['wall_ms']:.3f} ms wall per call  (trace: {r['logdir']})")
+        print(f"{'ms/call':>10}  {'share':>6}  {'count':>6}  entry")
+        for o in ops:
+            print(f"{o['dur_us'] / 1e3 / r['iters']:10.4f}  "
+                  f"{o['dur_us'] / (r['total_device_us'] or 1.0):6.1%}  "
+                  f"{o['count'] / r['iters']:6.1f}  {o['name'][:90]}")
+
+
+def _cmd_pointmap(args):
+    from torchfcn.pointmap import build_library
+    print(build_library(force=True))
 
 
 def main(argv=None):
@@ -84,6 +318,105 @@ def main(argv=None):
     pt.add_argument("--seed", type=int, default=0)
     pt.add_argument("--device", default="cuda")
     pt.set_defaults(fn=_cmd_pretrain)
+
+    d = sub.add_parser("detect", help="run the detector over image files")
+    d.add_argument("images", nargs="+")
+    d.add_argument("--model", default="googlenet_detectnet")
+    d.add_argument("--weights", default=None,
+                   help=".caffemodel file or Trainer snapshot directory")
+    d.add_argument("--threshold", type=float, default=0.5)
+    d.add_argument("--min-boxes", type=int, default=3)
+    d.add_argument("--nms-eps", type=float, default=0.2)
+    d.add_argument("--manifest", default=None,
+                   help="label manifest ('idx name' / 'idx _ name' lines) "
+                        "naming classes in the output")
+    d.add_argument("--overlay-dir", default=None,
+                   help="the detection overlay per input (not ported yet)")
+    d.add_argument("--device", default="cuda")
+    d.set_defaults(fn=_cmd_detect)
+
+    rp = sub.add_parser("replay", help="stream frame files through the "
+                                       "detector node")
+    rp.add_argument("images", nargs="*")
+    rp.add_argument("--video", default=None,
+                    help="video file as the frame source (not ported yet)")
+    rp.add_argument("--model", default="googlenet_detectnet")
+    rp.add_argument("--weights", default=None)
+    rp.add_argument("--micro-batch", type=int, default=0,
+                    help="> 0: batched throughput mode instead of "
+                         "per-frame bus replay")
+    rp.add_argument("--device", default="cuda")
+    rp.set_defaults(fn=_cmd_replay)
+
+    x = sub.add_parser("export", help="the serving pipeline as a "
+                                      "torch.export artifact")
+    x.add_argument("--model", default="googlenet_detectnet")
+    x.add_argument("--weights", default=None,
+                   help="snapshot dir or .caffemodel (shapes only; weights "
+                        "are a call argument, not stored)")
+    x.add_argument("--batch", type=int, default=8)
+    x.add_argument("--out", default="detector.pt2")
+    x.add_argument("--device", default="cuda",
+                   help="the device the program is traced for and runs on")
+    x.set_defaults(fn=_cmd_export)
+
+    ln = sub.add_parser("launch", help="build a node graph from a JSON "
+                                       "launch spec and stream frames "
+                                       "through it")
+    ln.add_argument("graph", help="JSON launch spec "
+                                  "(see examples/*.launch.json)")
+    ln.add_argument("--frames", nargs="*", default=None,
+                    help="image files to publish through the graph")
+    ln.add_argument("--video", default=None,
+                    help="video file to publish (not ported yet)")
+    ln.add_argument("--topic", default="image",
+                    help="topic the frames are published on")
+    ln.add_argument("--spin", type=int, default=1,
+                    help="bus spins when no frames are given")
+    ln.add_argument("--bus", default=None,
+                    help="attach to a cross-process broker "
+                         "(tcp://host:port, see `cli bus`)")
+    ln.add_argument("--nodes", default=None,
+                    help="comma-separated subset of the spec to run in "
+                         "this process")
+    ln.add_argument("--serve", type=float, default=None,
+                    help="spin for SECONDS serving remote-bus traffic "
+                         "(0 = until SIGINT); for node-only processes")
+    ln.add_argument("--device", default="cuda",
+                    help="device of the nodes that do not set one")
+    ln.set_defaults(fn=_cmd_launch)
+
+    bs = sub.add_parser("bus", help="run the cross-process topic broker")
+    bs.add_argument("--port", type=int, default=0,
+                    help="TCP port (0 = ephemeral, printed on start)")
+    bs.add_argument("--python", action="store_true",
+                    help="the pure-Python broker instead of the native one")
+    bs.add_argument("--max-outbox", type=int, default=64,
+                    help="per-subscriber queued-frame cap (drop-oldest)")
+    bs.set_defaults(fn=_cmd_bus)
+
+    pf = sub.add_parser("profile", help="per-kernel device time")
+    pf.add_argument("--model", action="append", default=None,
+                    help="registered model name, repeatable (default: "
+                         "googlenet_detectnet and its _serving preset)")
+    pf.add_argument("--batch", type=int, default=8)
+    pf.add_argument("--iters", type=int, default=10)
+    pf.add_argument("--top", type=int, default=25,
+                    help="rows to print (0 = all)")
+    pf.add_argument("--max-candidates", type=int, default=256)
+    pf.add_argument("--train", action="store_true",
+                    help="profile the train step (forward, backward, Adam) "
+                         "instead of the serving pipeline")
+    pf.add_argument("--logdir", default=None,
+                    help="write the Chrome trace here (one subdirectory "
+                         "per model when there are several)")
+    pf.add_argument("--json", action="store_true",
+                    help="one JSON line per model instead of the table")
+    pf.add_argument("--device", default="cuda")
+    pf.set_defaults(fn=_cmd_profile)
+
+    pm = sub.add_parser("pointmap", help="build the C++ point-map library")
+    pm.set_defaults(fn=_cmd_pointmap)
 
     args = p.parse_args(argv)
     args.fn(args)

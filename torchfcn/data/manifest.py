@@ -156,6 +156,12 @@ def bgr2gray_u8(img: np.ndarray) -> np.ndarray:
         np.uint8)
 
 
+def read_label_names(path: str) -> List[str]:
+    """Class names of a label manifest, one per line: ``idx name`` or
+    ``idx _ name`` (``tpufcn/data/manifest.py:187``)."""
+    return [line.split()[-1] for line in _lines(path)]
+
+
 def _lines(path: str) -> List[str]:
     with open(path) as f:
         return [ln.rstrip("\n") for ln in f if ln.strip()]

@@ -23,15 +23,24 @@ Each follows OpenCV's 8-bit code path, fixed-point rules included:
   build computes it (a cubic convolution with exact weights): within 1,
   at about 7e-6 of the values.
 
-``tests/test_torch_hardbench.py`` holds each against ``cv2`` over the
-sizes the benchmark draws.
+And two that the tiled segmenter of the stream surface uses
+(``torchfcn.serve.stream``):
+
+* ``resize_linear_f32``: ``cv.resize`` with ``INTER_LINEAR`` of a float32
+  image with 1 or 3 channels;
+* ``largest_contour_rect``: the bounding box of the largest contour of a
+  mask (``cv.findContours`` + ``cv.contourArea`` + ``cv.boundingRect``).
+
+``tests/test_torch_hardbench.py`` holds the first six against ``cv2`` over
+the sizes the benchmark draws, ``tests/test_torch_stream.py`` the last
+two.
 """
 
 from __future__ import annotations
 
 import functools
 import math
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -150,6 +159,145 @@ def resize_linear_u8(img: np.ndarray, size_wh: Tuple[int, int]
     out = ((yw[:, :1].reshape(shape) * (rows[yi[:, 0]] >> 4)) >> 16) + (
         (yw[:, 1:].reshape(shape) * (rows[yi[:, 1]] >> 4)) >> 16)
     return np.clip((out + 2) >> 2, 0, 255).astype(np.uint8)
+
+
+def _linear_taps_f32(n_in: int, n_out: int):
+    """(source indices (n_out, 2), float32 fractions (n_out,)) of one axis
+    of the float bilinear resize: sample positions ``(d + 0.5) * scale -
+    0.5`` in float64, a sample outside the pixel centres taking the edge
+    pixel alone."""
+    d = np.arange(n_out, dtype=np.float64)
+    pos = (d + 0.5) * (n_in / n_out) - 0.5
+    start = np.floor(pos).astype(np.int64)
+    frac = pos - start
+    lo, hi = start < 0, start >= n_in - 1
+    frac = np.where(lo | hi, 0.0, frac).astype(np.float32)
+    start = np.where(lo, 0, np.where(hi, n_in - 1, start))
+    idx = start[:, None] + np.arange(2)[None]
+    return np.clip(idx, 0, n_in - 1), frac
+
+
+def _lerp_fma(a: np.ndarray, b: np.ndarray, t: np.ndarray) -> np.ndarray:
+    """float32 ``a + (b - a) * t`` with the multiply-add fused: the exact
+    product in float64, one rounding to float32 (a float32 product is exact
+    in float64)."""
+    return ((b - a).astype(np.float64) * t + a).astype(np.float32)
+
+
+def resize_linear_f32(img: np.ndarray, size_wh: Tuple[int, int]
+                      ) -> np.ndarray:
+    """``cv.resize(img, size_wh)`` (``INTER_LINEAR``) of a float32 (H, W)
+    or (H, W, 1 | 3) image, as OpenCV's IPP build computes it: rows first,
+    each pass ``a + (b - a) * t`` with the multiply-add fused, half-pixel
+    sample positions, the border clamped in both passes.  One channel
+    comes back (H, W), as cv2 returns it.
+
+    Bit-equal to cv2 5.0 on one channel.  On three channels IPP leaves the
+    multiply-add unfused at some positions that depend on the vector lanes
+    (not recovered): up to about 2 % of the values differ there, by at most
+    an ulp of the image's largest value (``tests/test_torch_stream.py``
+    bounds both)."""
+    img = np.asarray(img, np.float32)
+    if img.ndim == 3 and img.shape[2] == 1:
+        img = img[..., 0]
+    if img.ndim not in (2, 3) or (img.ndim == 3 and img.shape[2] != 3):
+        raise ValueError(f"resize_linear_f32 takes (H, W) or (H, W, 1 | 3), "
+                         f"got {img.shape}")
+    xi, fx = _linear_taps_f32(img.shape[1], size_wh[0])
+    yi, fy = _linear_taps_f32(img.shape[0], size_wh[1])
+    tx = fx.reshape((1, -1) + (1,) * (img.ndim - 2))
+    rows = _lerp_fma(img[:, xi[:, 0]], img[:, xi[:, 1]], tx)
+    ty = fy.reshape((-1,) + (1,) * (img.ndim - 1))
+    return _lerp_fma(rows[yi[:, 0]], rows[yi[:, 1]], ty)
+
+
+# --- contours -------------------------------------------------------------
+
+# the 8 neighbours, counter-clockwise on the screen from the right (x, y
+# with y down), as OpenCV's border follower numbers them
+_DIRS = ((1, 0), (1, -1), (0, -1), (-1, -1), (-1, 0), (-1, 1), (0, 1), (1, 1))
+
+
+def _outer_border(fg: np.ndarray, x0: int, y0: int) -> list:
+    """The outer border of the 8-connected component whose first pixel in
+    raster order is (x0, y0), as OpenCV's border follower (Suzuki and Abe)
+    walks it: every border pixel in turn, a pixel visited again where the
+    component narrows to one pixel.  ``fg`` is padded with zeros."""
+    def on(s, x, y):
+        dx, dy = _DIRS[s & 7]
+        return fg[y + dy, x + dx]
+
+    s = 4                                   # the background pixel left
+    for _ in range(7):
+        s = (s - 1) & 7                     # clockwise from the left
+        if on(s, x0, y0):
+            break
+    else:
+        return [(x0, y0)]                   # a single pixel
+    x1, y1 = x0 + _DIRS[s][0], y0 + _DIRS[s][1]
+    pts = []
+    x3, y3 = x0, y0
+    while True:
+        # counter-clockwise from the direction after the previous pixel
+        for _ in range(8):
+            s += 1
+            if on(s, x3, y3):
+                break
+        s &= 7
+        pts.append((x3, y3))
+        x4, y4 = x3 + _DIRS[s][0], y3 + _DIRS[s][1]
+        if (x4, y4) == (x0, y0) and (x3, y3) == (x1, y1):
+            return pts
+        x3, y3 = x4, y4
+        s = (s + 4) & 7
+
+
+def contour_area(pts) -> float:
+    """``cv.contourArea``: the shoelace area of the closed polygon."""
+    if len(pts) < 3:
+        return 0.0
+    p = np.asarray(pts, np.float64)
+    x, y = p[:, 0], p[:, 1]
+    return abs(float(np.dot(x, np.roll(y, -1)) - np.dot(y, np.roll(x, -1))
+                     )) / 2
+
+
+def largest_contour_rect(mask: np.ndarray
+                         ) -> Optional[Tuple[int, int, int, int]]:
+    """``cv.boundingRect`` of the largest contour by ``cv.contourArea``
+    that ``cv.findContours(mask > 0, RETR_CCOMP, CHAIN_APPROX_SIMPLE)``
+    finds, as (x, y, w, h), or None when there is none or its area is 0.
+
+    The largest contour is always an outer border: a hole's border lies
+    inside its component's outer border, and where the two enclose the
+    same area (a ring one pixel wide) they have the same box.  So this
+    traces only the outer border of each 8-connected component
+    (``scipy.ndimage.label``) and boxes the component with the largest
+    area.  Equal areas go to the component whose first pixel comes last in
+    raster order, as cv2 lists its contours, latest found first."""
+    from scipy import ndimage
+    fg = np.asarray(mask) > 0
+    labels, n = ndimage.label(fg, structure=np.ones((3, 3), bool))
+    if n == 0:
+        return None
+    padded = np.pad(fg, 1)
+    # each component's first pixel in raster order
+    flat = labels.ravel()
+    order = np.flatnonzero(flat)
+    first = np.full(n + 1, -1, np.int64)
+    first[flat[order[::-1]]] = order[::-1]
+    best, best_area = None, 0.0
+    w = fg.shape[1]
+    for lab in np.argsort(first[1:])[::-1] + 1:
+        y0, x0 = divmod(int(first[lab]), w)
+        area = contour_area(_outer_border(padded, x0 + 1, y0 + 1))
+        if area > best_area:
+            best, best_area = lab, area
+    if best is None:
+        return None
+    ys, xs = np.nonzero(labels == best)
+    return (int(xs.min()), int(ys.min()), int(xs.max() - xs.min() + 1),
+            int(ys.max() - ys.min() + 1))
 
 
 # --- polygons -------------------------------------------------------------

@@ -5,14 +5,14 @@ All ``torchfcn/csrc/*.cu`` sources compile with ``nvcc`` for ``sm_90a``
 into one shared library with a plain C interface, loaded with ``ctypes`` (a
 few seconds to build; no PyTorch headers).  The library is built at first
 use into ``torchfcn/_build`` (listed in ``.gitignore``), named by a hash of
-the sources and flags, so a changed source rebuilds.
+the sources and flags, so a changed source rebuilds
+(``torchfcn/utils/native.py::hashed_build``).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
 import os
 import shutil
 import subprocess
@@ -20,9 +20,9 @@ from pathlib import Path
 
 import torch
 
-PACKAGE_DIR = Path(__file__).resolve().parents[2]
+from torchfcn.utils.native import PACKAGE_DIR, hashed_build
+
 CSRC_DIR = PACKAGE_DIR / "csrc"
-BUILD_DIR = PACKAGE_DIR / "_build"
 
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (
@@ -74,40 +74,34 @@ def _check(cmd, returncode: int, output: str) -> None:
 def build() -> Path:
     """Compile the kernels unless this exact build exists; returns the
     library's path, named by a hash of the sources and flags."""
-    digest = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
-    for src in sorted(CSRC_DIR.glob("*.cu*")):
-        digest.update(src.name.encode())
-        digest.update(src.read_bytes())
-    out = BUILD_DIR / f"libtorchfcn_kernels-{digest.hexdigest()[:16]}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"
     sources = sorted(CSRC_DIR.glob("*.cu"))
-    objects = [BUILD_DIR / f"{src.stem}-{tag}.o" for src in sources]
-    compiles = [[nvcc(), *COMPILE_FLAGS, "-c", "-o", str(obj), str(src)]
-                for src, obj in zip(sources, objects)]
-    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for cmd in compiles]
-    try:
-        for cmd, proc in zip(compiles, procs):
-            output, _ = proc.communicate()
-            _check(cmd, proc.returncode, output)
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        link = [nvcc(), *LINK_FLAGS, "-o", str(tmp), *map(str, objects)]
-        linked = subprocess.run(link, capture_output=True, text=True)
-        _check(link, linked.returncode, linked.stdout + linked.stderr)
-        os.replace(tmp, out)   # atomic: no process loads a half-written file
-    finally:   # after a failure, stop the compiles still running
-        for proc in procs:
-            if proc.poll() is None:
-                proc.kill()
-            if not proc.stdout.closed:
-                proc.communicate()
-        for obj in objects:
-            obj.unlink(missing_ok=True)
-    return out
+
+    def make(tmp: Path) -> None:
+        objects = [tmp.with_name(f"{src.stem}.{tmp.name}.o")
+                   for src in sources]
+        compiles = [[nvcc(), *COMPILE_FLAGS, "-c", "-o", str(obj), str(src)]
+                    for src, obj in zip(sources, objects)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cmd in compiles]
+        try:
+            for cmd, proc in zip(compiles, procs):
+                output, _ = proc.communicate()
+                _check(cmd, proc.returncode, output)
+            link = [nvcc(), *LINK_FLAGS, "-o", str(tmp), *map(str, objects)]
+            linked = subprocess.run(link, capture_output=True, text=True)
+            _check(link, linked.returncode, linked.stdout + linked.stderr)
+        finally:   # after a failure, stop the compiles still running
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                if not proc.stdout.closed:
+                    proc.communicate()
+            for obj in objects:
+                obj.unlink(missing_ok=True)
+    return hashed_build("libtorchfcn_kernels", ".so",
+                        COMPILE_FLAGS + LINK_FLAGS,
+                        sorted(CSRC_DIR.glob("*.cu*")), make)
 
 
 @functools.lru_cache(maxsize=None)

@@ -13,9 +13,8 @@ CUDA device and their plain versions on the CPU.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional, Tuple
+from typing import Optional, Tuple
 
-import numpy as np
 import torch
 import torch.nn as nn
 
@@ -27,6 +26,7 @@ from torchfcn.models import build as build_model, get_spec
 from torchfcn.ops.grid_codec import decode_gridboxes
 from torchfcn.ops.group_rects import vote_boxes_batched
 from torchfcn.ops.image import preprocess_bgr, resize_bilinear
+from torchfcn.serve.result import DetectionResult
 
 # select_candidates clamps rounded coords to what the reference's packed sort
 # payload holds, so that results stay bit-identical to it
@@ -69,34 +69,6 @@ def preprocess(frames: torch.Tensor, mode: str,
     if tuple(frames.shape[-3:-1]) == tuple(net_hw):
         return frames
     return resize_bilinear(frames, net_hw)
-
-
-class DetectionResult(NamedTuple):
-    """Fixed-capacity per-class detections, frame coordinates.
-
-    boxes: (B, C, K, 4) int32 corner boxes (x1, y1, x2, y2).
-    confidence: (B, C, K) float32 log-votes (reference conf = log(weight)).
-    valid: (B, C, K) bool.
-    """
-
-    boxes: torch.Tensor
-    confidence: torch.Tensor
-    valid: torch.Tensor
-
-    def to_lists(self):
-        """Host-side: list (per image) of (box, label, conf) tuples."""
-        boxes = self.boxes.cpu().numpy()
-        conf = self.confidence.cpu().numpy()
-        valid = self.valid.cpu().numpy()
-        out = []
-        for b in range(boxes.shape[0]):
-            dets = []
-            for c in range(boxes.shape[1]):
-                for i in np.nonzero(valid[b, c])[0]:
-                    dets.append((boxes[b, c, i].tolist(), int(c),
-                                 float(conf[b, c, i])))
-            out.append(dets)
-        return out
 
 
 def serving_policy(dtype: torch.dtype,
@@ -193,11 +165,41 @@ class Detector:
         c = self.grid.num_classes
         return c - 1 if self.spec.background_channel is not None else c
 
-    def _forward(self, frames: torch.Tensor):
-        """Preprocess + model forward -> (coverage, bboxes) NHWC grids."""
+    def _forward(self, frames: torch.Tensor, params: Optional[dict] = None):
+        """Preprocess + model forward -> (coverage, bboxes) NHWC grids, with
+        the model's own parameters or ``params`` (a name -> tensor map of
+        every parameter and buffer, ``torch.func.functional_call``)."""
         net_hw = (self.grid.im_height, self.grid.im_width)
-        out = self.model(preprocess(frames, self.spec.preprocessing, net_hw))
+        x = preprocess(frames, self.spec.preprocessing, net_hw)
+        out = (self.model(x) if params is None else
+               torch.func.functional_call(self.model, params, (x,)))
         return out["coverage"], out["bboxes"]
+
+    def _pipeline(self, frames: torch.Tensor,
+                  params: Optional[dict] = None) -> DetectionResult:
+        if frames.dim() != 4 or frames.shape[-1] != 3:
+            raise ValueError(f"frames must be (B, H, W, 3), got "
+                             f"{tuple(frames.shape)}")
+        with self.policy.precision():
+            coverage, bboxes = self._forward(frames, params)
+        return self._decode_nms(coverage, bboxes, tuple(frames.shape[1:3]))
+
+    def forward_fn(self):
+        """``(fn, params)``: ``fn(params, frames) -> DetectionResult`` is the
+        whole pipeline (``tpufcn/serve/detector.py:312-315``) with the
+        parameters as an explicit input, run without autograd under the
+        Detector's policy; ``params`` maps the name of every parameter and
+        buffer of the model to its tensor.  Another map of the same names
+        serves other weights with no rebuild (``serve/export.py`` exports
+        ``fn``)."""
+        params = dict(self.model.named_parameters())
+        params.update(self.model.named_buffers())
+
+        def fn(params: dict, frames: torch.Tensor) -> DetectionResult:
+            with torch.no_grad():
+                return self._pipeline(
+                    torch.as_tensor(frames, device=self.device), params)
+        return fn, params
 
     def _decode_nms(self, coverage: torch.Tensor, bboxes: torch.Tensor,
                     in_hw: Tuple[int, int]) -> DetectionResult:
@@ -238,13 +240,7 @@ class Detector:
     def __call__(self, frames) -> DetectionResult:
         """frames: (B, H, W, 3) BGR, uint8 or float in [0, 255], of any
         size; boxes come back in the frames' coordinates."""
-        frames = torch.as_tensor(frames, device=self.device)
-        if frames.dim() != 4 or frames.shape[-1] != 3:
-            raise ValueError(f"frames must be (B, H, W, 3), got "
-                             f"{tuple(frames.shape)}")
-        with self.policy.precision():
-            coverage, bboxes = self._forward(frames)
-        return self._decode_nms(coverage, bboxes, tuple(frames.shape[1:3]))
+        return self._pipeline(torch.as_tensor(frames, device=self.device))
 
     @classmethod
     def from_checkpoint(cls, snapshot_dir: str,

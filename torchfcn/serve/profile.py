@@ -1,34 +1,34 @@
-"""Device-time breakdown of serving paths on one NVIDIA GPU, by
-``torch.profiler``.  Run from the repository root:
+"""Device-time breakdown of the serving pipeline or a train step, by
+``torch.profiler``: the one profiling path of the port, which the CLI's
+``profile`` subcommand runs.  From the repository root:
 
-    python -m torchfcn.serve.profile [--model NAME ...]
+    python -m torchfcn.cli profile [--model NAME ...] [--train] [--json]
+    python -m torchfcn.serve.profile [...]     # the same subcommand
 
 ``--model`` takes any registered model name and may repeat; by default
 ``googlenet_detectnet`` (bf16) and ``googlenet_detectnet_serving`` (e5m2
-storage, bf16 compute).  A detection model runs through the Detector with
-K = 256 and the heads biased by ``bias_heads`` so that NMS gets real
-clusters, a segmentation model through the Segmenter.  Each gets 8 seeded
-uint8 frames of its net's size sent from host memory: 3 warm-up batches,
-then 10 batches under the profiler.  Prints, per model, the device-busy
-time per batch (the sum of the device self time of every kernel and copy;
-one stream, so nothing overlaps), the wall time per batch of the profiled
-loop, and the entries with the most device time per batch, then one JSON
-line with the same numbers.  Needs a CUDA device.
+storage, bf16 compute).  A detection model runs through the Detector in
+bf16 with K = ``--max-candidates`` and the heads biased by ``bias_heads``
+so that NMS gets real clusters, a segmentation model through the
+Segmenter; ``--train`` profiles a train step (forward, backward, Adam) on a
+synthetic batch instead.  Each gets ``--batch`` seeded uint8 frames of its
+net's size sent from host memory: 3 warm-up calls, then ``--iters`` calls
+under the profiler.  On the card the entries are the device self time of
+every kernel and copy (one stream, so nothing overlaps, and their sum is
+the device-busy time); on the CPU (``--device cpu``), the self time of
+every operator.
 """
 
 from __future__ import annotations
 
-import argparse
-import json
-import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
-from torch.profiler import ProfilerActivity, profile
 
-BATCH, K, SEED, WARMUP, BATCHES, TOP = 8, 256, 0, 3, 10, 14
+SEED, WARMUP = 0, 3
 DEFAULT_MODELS = ("googlenet_detectnet", "googlenet_detectnet_serving")
 
 
@@ -82,72 +82,97 @@ def range_device_us(prof, prefix: str) -> float:
     return total
 
 
-def serving_path(model: str):
-    """The serving callable of ``model`` on the card, with its frame size."""
+def serving_path(model: str, frames: np.ndarray, device: str = "cuda",
+                 max_candidates: int = 256):
+    """One bf16 serving call of ``model`` on ``frames``, as a callable that
+    returns once the result is on the host."""
     from torchfcn.models import get_spec
     from torchfcn.serve.detector import Detector
     from torchfcn.serve.segment import Segmenter
+    if "coverage" in get_spec(model).heads:
+        det = Detector(model, max_candidates=max_candidates,
+                       dtype=torch.bfloat16, rng_seed=SEED, device=device)
+        bias_heads(det)
+        return lambda: det(frames).boxes.cpu()
+    seg = Segmenter(model, dtype=torch.bfloat16, rng_seed=SEED,
+                    device=device)
+    return lambda: seg(frames).cpu()
+
+
+def train_path(model: str, frames: np.ndarray, device: str = "cuda"):
+    """One train step (forward, backward, Adam) of ``model`` on a synthetic
+    batch of ``frames``, one box each, as a callable that returns the
+    loss."""
+    from torchfcn.core.config import DataConfig, TrainConfig
+    from torchfcn.models import get_spec
+    from torchfcn.train.trainer import Trainer
+
     spec = get_spec(model)
-    if "coverage" in spec.heads:
-        run = Detector(model, max_candidates=K, dtype=torch.bfloat16,
-                       rng_seed=SEED, device="cuda")
-        bias_heads(run)
-    else:
-        run = Segmenter(model, dtype=torch.bfloat16, rng_seed=SEED,
-                        device="cuda")
-    return run, spec.grid.im_height
+    b, h, w = frames.shape[:3]
+    cfg = TrainConfig(
+        grid=spec.grid, model=model, data=DataConfig(batch_size=b),
+        snapshot_every=0, log_every=10 ** 9,
+        snapshot_dir=tempfile.mkdtemp(prefix="torchfcn_profile_snap_"))
+    with_seg = "seg" in spec.heads
+    trainer = Trainer(cfg, with_seg=with_seg, log_sink=lambda s: None,
+                      device=device)
+    holder = [trainer.init_state()]
+    c = spec.grid.num_classes
+    lo = 1 if spec.background_channel is not None else 0
+    batch = {
+        "image": frames,
+        "rects": np.tile(np.array([8, 8, h // 2, w // 2], np.float32),
+                         (b, 4, 1)),
+        "labels": np.full((b, 4), max(c - 1 - lo, 0), np.int32),
+        "valid": np.tile(np.array([True, False, False, False]), (b, 1)),
+    }
+    if with_seg:
+        batch["seg"] = np.zeros((b, h, w), np.int32)
+    put = trainer.put(batch)
+
+    def run():
+        holder[0], metrics = trainer.step_fn(holder[0], put)
+        return float(metrics["loss_total"])
+    return run
 
 
-def profile_path(model: str) -> dict:
-    """Profile BATCHES batches of ``model``; returns its breakdown."""
-    run, net = serving_path(model)
+def profile_path(model: str, device: str = "cuda", batch: int = 8,
+                 iters: int = 10, train: bool = False,
+                 max_candidates: int = 256, logdir=None) -> dict:
+    """Profile ``iters`` calls of ``model``'s serving pipeline (or, with
+    ``train``, its train step) after ``WARMUP`` calls outside the trace;
+    writes the Chrome trace to ``logdir`` (a new temporary directory when
+    None) and returns the breakdown: ``total_device_us`` over the calls
+    (device-busy time on the card, operator self time on the CPU),
+    ``wall_ms`` per call, and ``ops``, every entry sorted by time."""
+    from torchfcn.models import get_spec
+    from torchfcn.utils.profiling import aggregate_device_trace, device_trace
+
+    grid = get_spec(model).grid
     frames = np.random.default_rng(SEED).integers(
-        0, 256, (BATCH, net, net, 3), dtype=np.uint8)
+        0, 256, (batch, grid.im_height, grid.im_width, 3), dtype=np.uint8)
+    run = (train_path(model, frames, device) if train
+           else serving_path(model, frames, device, max_candidates))
+    cuda = device != "cpu"
     for _ in range(WARMUP):
-        run(frames)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(BATCHES):
-            run(frames)
+        run()
+    if cuda:
         torch.cuda.synchronize()
+    logdir = logdir or tempfile.mkdtemp(prefix="torchfcn_profile_")
+    with device_trace(logdir, cuda=cuda) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            run()
+        if cuda:
+            torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    rows = [(name, us / 1e3 / BATCHES, count / BATCHES)
-            for name, us, count in device_rows(prof)]
-    rows.sort(key=lambda r: -r[1])
-    return dict(model=model, batch=BATCH, size=net, batches=BATCHES,
-                busy_ms=sum(r[1] for r in rows),
-                wall_ms=wall * 1e3 / BATCHES,
-                top=[dict(name=n[:90], ms=ms, launches=c)
-                     for n, ms, c in rows[:TOP]])
-
-
-def main(argv=None) -> int:
-    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--model", action="append",
-                        help="registered model name (repeatable)")
-    models = parser.parse_args(argv).model or DEFAULT_MODELS
-    if not torch.cuda.is_available():
-        print("profile: CUDA is not available", file=sys.stderr)
-        return 1
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.splitlines()[0]
-    results = []
-    for model in models:
-        r = profile_path(model)
-        results.append(r)
-        print(f"{model} B={BATCH} {r['size']}x{r['size']} on {card}: device "
-              f"busy {r['busy_ms']:.3f} ms of {r['wall_ms']:.3f} ms wall per "
-              f"batch ({100 * (1 - r['busy_ms'] / r['wall_ms']):.0f} % idle)")
-        for row in r["top"]:
-            print(f"  {row['ms']:8.4f} ms  x{row['launches']:5.1f}  "
-                  f"{row['name']}")
-    print(json.dumps({"card": card, "paths": results}))
-    return 0
+    ops = aggregate_device_trace(prof, device="cuda" if cuda else "cpu")
+    return dict(model=model, mode="train" if train else "serve",
+                batch=batch, device=device, iters=iters,
+                total_device_us=sum(o["dur_us"] for o in ops),
+                wall_ms=wall * 1e3 / iters, logdir=logdir, ops=ops)
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    from torchfcn.cli import main
+    sys.exit(main(["profile", *sys.argv[1:]]))
