@@ -161,13 +161,38 @@ plain versions are full float32.
    launched once a training step, groupRectangles once a scoring chunk
    and held against its plain version on the trained model's first
    chunk, the stem tail once an e5m2 scoring chunk; and the gate step's
-   device busy time with the LRN ops' plain backward's share.
+   device busy time with the LRN ops' plain backward's share;
+12. mesh: the (data, space) mesh on torch.distributed.  The stem-tail
+   kernel on row shards (halo rows above and below read as data) against
+   its plain version with the same arguments at the row-sharded serving
+   path's three shard shapes, to the stem tail's bounds, timed at rank 0's.
+   NCCL at world size 1 on a 1 x 1 mesh, its collectives called: a
+   parity() train step of googlenet_detectnet at B = 16, 448x448, dropout
+   on, equal to the mesh=None step within the parity step's limits, and
+   the flagship Detector (bf16, K = 256) equal to mesh=None's.  Two
+   processes sharing the card over gloo (NCCL refuses one GPU twice): a
+   (data=2) train step against the one-process step (gradients by the
+   parity step's card-vs-CPU median rule: a batch shard's activations may
+   round elsewhere), and the (space=2) bf16 and e5m2 Detectors and the
+   (data=2) Detector, each on 8 448x448 frames: every rank returns the same
+   global result; against the one process (mesh=None, in rank 0's process,
+   the 8 frames in two calls of 4: each rank's problem size, by which
+   cuDNN picks its bf16 algorithms) the heads within MESH_HEAD_TOL, the
+   result equal, integers and confidences exactly, to decode + NMS of its
+   own heads, and to the one process's result where the heads are
+   bit-equal (else the share of equal entries is printed); the share of
+   entries equal to one call of all 8 frames is printed (a box near a
+   rounding edge moves by one when the convs round elsewhere).  Prints the halo
+   exchange's share of a row-sharded Detector call, and the step time of
+   the one process, of the NCCL 1 x 1 mesh and of 2 gloo ranks, beside the
+   card's name and power limit.
 
 Then one JSON line of the stream phase's numbers, one of the families'
-numbers, one of the training runs' numbers, one of the data phase's, one of the gates', one JSON line of
+numbers, one of the training runs' numbers, one of the data phase's, one of the gates', one of the mesh phase's, one JSON line of
 per-kernel numbers (with each kernel's launches per dispatch of the
 stream graphs, per training step, per step fed by the compositor, per validation, per gate training step and
-per gate scoring), each kernel's time beside its
+per gate scoring, per rank in each run of the mesh phase; the stem tail on
+halo rows as a row of its own), each kernel's time beside its
 bound (``bound_ms``: the larger of the bytes it must move over 3.35 TB/s
 and its operations over the peak rate of their type, 989 TFLOP/s on the
 bf16 tensor cores, 67 TFLOP/s in float32, or 4.18e12/s on the special-
@@ -253,26 +278,60 @@ def median_ms(fn) -> float:
     return statistics.median(times)
 
 
+# torch.profiler has now and then come back from a profile of calls that
+# launched kernels with no device activity at all (twice so far, each
+# time in an early phase; ROADMAP Queue 3 item 4): such a profile is logged and taken again, up to this many times
+PROFILE_TRIES = 3
+
+
+def device_profile(run, what: str) -> tuple:
+    """``run()`` and a synchronize under torch.profiler, CPU and CUDA
+    activity on; returns the finished profile and its device rows
+    (``serve.profile.device_rows``).  A profile with no device row is
+    logged and ``run`` is profiled again, PROFILE_TRIES times in all;
+    then it raises."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from torchfcn.serve.profile import device_rows
+    for attempt in range(1, PROFILE_TRIES + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        rows = device_rows(prof)
+        if rows:
+            if attempt > 1:
+                log("profile", f"{what}: profile {attempt} of "
+                    f"{PROFILE_TRIES} recorded device time")
+            return prof, rows
+        log("profile", f"{what}: torch.profiler recorded no device time "
+            f"(profile {attempt} of {PROFILE_TRIES})")
+    raise AssertionError(f"{what}: torch.profiler recorded no device time "
+                         f"in {PROFILE_TRIES} profiles")
+
+
 def busy_ms(fn) -> float:
     """Device time of one call of ``fn``: the device self time of every
     kernel and copy it launches, summed over REPS calls under torch.profiler
     after WARMUP calls, per call.  Unlike CUDA events around the call, it
-    leaves out the device's idle time while the host prepares a launch."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from torchfcn.serve.profile import device_rows
+    leaves out the device's idle time while the host prepares a launch.
+    Where PROFILE_TRIES profiles record no device time, it logs so and
+    returns the CUDA-event time of ``median_ms`` instead."""
+    what = f"{fn.__qualname__} (chip_smoke.py:{fn.__code__.co_firstlineno})"
     for _ in range(WARMUP):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+
+    def calls():
         for _ in range(REPS):
             fn()
-        torch.cuda.synchronize()
-    total_us = sum(us for _, us, _ in device_rows(prof))
-    if total_us <= 0:
-        raise AssertionError("torch.profiler recorded no device time")
-    return total_us / 1e3 / REPS
+
+    try:
+        _, rows = device_profile(calls, what)
+    except AssertionError as e:
+        log("profile", f"{e}; timed by CUDA events instead")
+        return median_ms(fn)
+    return sum(us for _, us, _ in rows) / 1e3 / REPS
 
 
 def bf16_ulp(t: torch.Tensor) -> torch.Tensor:
@@ -1904,9 +1963,7 @@ def train_run(trainer, batch, counters, card: str, what: str) -> dict:
     """TRAIN_WARMUP + TRAIN_STEPS steps of ``trainer`` on one fixed batch,
     counted; then PROFILED_STEPS more under torch.profiler.  Returns the
     state and the run's numbers."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from torchfcn.serve.profile import device_rows, range_device_us
+    from torchfcn.serve.profile import range_device_us
     state = trainer.init_state()
     b = trainer.put(batch)
     for fn in counters.values():
@@ -1929,12 +1986,13 @@ def train_run(trainer, batch, counters, card: str, what: str) -> dict:
     losses = [float(v) for v in losses]
     if not all(np.isfinite(losses)):
         raise AssertionError(f"{what}: a non-finite loss: {losses}")
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+
+    def profiled():
+        nonlocal state
         for _ in range(PROFILED_STEPS):
-            state, metrics = trainer.step_fn(state, b)
-        torch.cuda.synchronize()
-    rows = device_rows(prof)
+            state, _ = trainer.step_fn(state, b)
+
+    prof, rows = device_profile(profiled, f"train: {what}")
     busy = sum(us for _, us, _ in rows) / 1e3 / PROFILED_STEPS
     lrn_fwd = sum(us for name, us, _ in rows
                   if "lrn_kernel" in name or "lrn_maxpool_kernel" in name
@@ -2291,9 +2349,6 @@ def compositor_cost(lib, bgs, net: int, batch: int, card: str) -> dict:
     """Device busy and kernel launches per batch (torch.profiler), batches
     per second on the host clock (each run ending in a synchronize); the
     first batch of a pipeline also checked for host synchronisation."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from torchfcn.serve.profile import device_rows
     pipe = data_pipe(lib, bgs, net, batch, SEED + 30)
     for _ in range(WARMUP):
         pipe.batch(batch)
@@ -2309,12 +2364,12 @@ def compositor_cost(lib, bgs, net: int, batch: int, card: str) -> dict:
         pipe.batch(batch)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+
+    def profiled():
         for _ in range(DATA_PROFILED):
             pipe.batch(batch)
-        torch.cuda.synchronize()
-    rows = device_rows(prof)
+
+    _, rows = device_profile(profiled, f"data: compositor {net}x{net}")
     row = dict(net=net, batch=batch,
                busy_ms=sum(us for _, us, _ in rows) / 1e3 / DATA_PROFILED,
                launches=sum(n for _, _, n in rows) / DATA_PROFILED,
@@ -2347,9 +2402,7 @@ def timed_steps(trainer, state, it, counters) -> tuple:
     """DATA_TRAIN_STEPS steps of the Trainer from ``it`` after a warm-up
     ``fit`` of TRAIN_WARMUP steps, counted, then DATA_PROFILED_STEPS
     profiled; returns the state and the run's numbers."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from torchfcn.serve.profile import device_rows, range_device_us
+    from torchfcn.serve.profile import range_device_us
     state = trainer.fit(it, max_iter=state.step + TRAIN_WARMUP, state=state,
                         resume=False)
 
@@ -2370,12 +2423,9 @@ def timed_steps(trainer, state, it, counters) -> tuple:
                 counters.items()}
     if not np.isfinite(float(metrics["loss_total"])):
         raise AssertionError("data: a non-finite loss")
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        steps(DATA_PROFILED_STEPS)
-        torch.cuda.synchronize()
-    busy = sum(us for _, us, _ in device_rows(prof)) / 1e3 \
-        / DATA_PROFILED_STEPS
+    prof, rows = device_profile(lambda: steps(DATA_PROFILED_STEPS),
+                                "data: Trainer steps")
+    busy = sum(us for _, us, _ in rows) / 1e3 / DATA_PROFILED_STEPS
     comp = range_device_us(prof, "compositor") / 1e3 / DATA_PROFILED_STEPS
     batch = trainer.cfg.data.batch_size
     return state, dict(steps_s=DATA_TRAIN_STEPS / seconds,
@@ -2413,6 +2463,10 @@ def check_recorded_lrn(calls: dict, batch: int, phase: str,
             got, want = getattr(layers, fn)(x, **args), plain(x, **args)
         torch.cuda.synchronize()
         what = f"{name} {tuple(x.shape)} {x.dtype} of {where}"
+        if got.shape != want.shape:
+            raise AssertionError(f"{phase}: {what}: the kernel's "
+                                 f"{tuple(got.shape)}, the plain version's "
+                                 f"{tuple(want.shape)}")
         err = check_lrn_outputs(got, want, x.dtype, what)
         out[name] = dict(shape=list(x.shape), dtype=str(x.dtype),
                          max_abs_err=err,
@@ -2675,32 +2729,39 @@ def scoring_inputs(rows: list):
         gates._score_detector = fn
 
 
-def check_recorded_stem(calls: list, batch: int) -> dict:
-    """The stem-tail kernel held against its plain version on the input and
-    weights of its recorded call (an e5m2 scoring chunk), within
-    check_stem_outputs' bounds (phase_kernels')."""
+def check_recorded_stem(calls: list, batch: int, phase: str = "gates",
+                        where: str = "the trained net's e5m2 scoring "
+                        "chunk") -> dict:
+    """The stem-tail kernel held against its plain version on the input,
+    weights and halo rows of its recorded call, within check_stem_outputs'
+    bounds (phase_kernels')."""
     from torchfcn.models import googlenet
     from torchfcn.ops.stem import stem_tail
     if len(calls) != 1:
-        raise AssertionError(f"gates: {len(calls)} stem_tail calls recorded "
-                             f"in the e5m2 scoring, not one")
+        raise AssertionError(f"{phase}: {len(calls)} stem_tail calls "
+                             f"recorded in {where}, not one")
     args = dict(calls[0])
     x = args["x"]
     weights = [args[k].detach() for k in ("wr", "br", "w2", "b2")]
     store = args["store_dtype"]
+    halo = (args["halo_top"], args["halo_bottom"])
     if x.shape[0] != batch or store != torch.float8_e5m2:
-        raise AssertionError(f"gates: stem_tail ran on {tuple(x.shape)} "
+        raise AssertionError(f"{phase}: stem_tail ran on {tuple(x.shape)} "
                              f"storing {store}, not B = {batch} in e5m2")
     with torch.no_grad():
-        got = googlenet.stem_tail_cuda(x, *weights, store)
-        want = stem_tail(x, *weights, store)
-    what = f"stem_tail {tuple(x.shape)} e5m2 of the trained net's e5m2 " \
-        f"scoring chunk"
+        got = googlenet.stem_tail_cuda(x, *weights, store, *halo)
+        want = stem_tail(x, *weights, store, *halo)
+    what = f"stem_tail {tuple(x.shape)} halo {halo[0]}/{halo[1]} e5m2 of " \
+        f"{where}"
+    if got.shape != want.shape:
+        raise AssertionError(f"{phase}: {what}: the kernel's "
+                             f"{tuple(got.shape)}, the plain version's "
+                             f"{tuple(want.shape)}")
     max_err, equal = check_stem_outputs(got, want, store, what)
-    log("gates", f"{what}: the kernel against its plain version, max|err| "
+    log(phase, f"{what}: the kernel against its plain version, max|err| "
         f"{max_err:.3g}, {100 * equal:.4f} % bit-equal")
-    return dict(shape=list(x.shape), dtype=str(x.dtype), max_abs_err=max_err,
-                bit_equal_share=equal)
+    return dict(shape=list(x.shape), dtype=str(x.dtype), halo=list(halo),
+                max_abs_err=max_err, bit_equal_share=equal)
 
 
 def gate_cfg(cfgs: dict, family: str) -> tuple:
@@ -2717,10 +2778,8 @@ def gate_step_profile(root: str, family: str, card: str) -> dict:
     weights) on GATE_PROFILED_STEPS composed batches under torch.profiler,
     after as many warm-up steps: device busy per step and the LRN ops'
     plain backward's share of it."""
-    from torch.profiler import ProfilerActivity, profile
-
     from torchfcn.data.hardbench import hard_device_pipeline
-    from torchfcn.serve.profile import device_rows, range_device_us
+    from torchfcn.serve.profile import range_device_us
     from torchfcn.train import gates
     kind, cfg = gate_cfg(gates.bench_gate_configs("bench"), family)
     g, grid = gates._gate_geometry(kind, cfg)
@@ -2738,13 +2797,14 @@ def gate_step_profile(root: str, family: str, card: str) -> dict:
     for b in batches[:GATE_PROFILED_STEPS]:
         state, _ = trainer.step_fn(state, b)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+
+    def profiled():
+        nonlocal state
         for b in batches[GATE_PROFILED_STEPS:]:
             state, _ = trainer.step_fn(state, b)
-        torch.cuda.synchronize()
-    busy = sum(us for _, us, _ in device_rows(prof)) / 1e3 \
-        / GATE_PROFILED_STEPS
+
+    prof, rows = device_profile(profiled, f"gates: {family} gate step")
+    busy = sum(us for _, us, _ in rows) / 1e3 / GATE_PROFILED_STEPS
     bwd = sum(range_device_us(prof, f"torchfcn::{plain}_vjp")
               for plain in ("lrn_across_channels", "lrn_maxpool")
               ) / 1e3 / GATE_PROFILED_STEPS
@@ -2864,14 +2924,19 @@ def phase_gates(counters, card: str) -> dict:
     pre = {k: v for k, v in cfgs["vgg16_pretrain"].items()
            if k not in ("kind", "est_s", "est_s0")}
     marks, prof_rows, exported = [], [], []
-    with pretrain_clock([], prof_rows) as mark:
-        pretrain_vgg16(f"{root}/profiled.caffemodel", batch=128,
-                       device="cuda", log=mark, **dict(
-                           pre, steps=1 + GATE_PROFILED_STEPS,
-                           n_bank=GATE_PRETRAIN_PROFILE_BANK))
-    if not prof_rows:
+    for attempt in range(1, PROFILE_TRIES + 1):
+        with pretrain_clock([], prof_rows) as mark:
+            pretrain_vgg16(f"{root}/profiled.caffemodel", batch=128,
+                           device="cuda", log=mark, **dict(
+                               pre, steps=1 + GATE_PROFILED_STEPS,
+                               n_bank=GATE_PRETRAIN_PROFILE_BANK))
+        if prof_rows:
+            break
+        log("profile", f"gates: the pretrain's profiled steps recorded no "
+            f"device time (profile {attempt} of {PROFILE_TRIES})")
+    else:
         raise AssertionError("gates: the pretrain's profiled steps recorded "
-                             "no device time")
+                             f"no device time in {PROFILE_TRIES} profiles")
     pre["steps"] = GATE_PRETRAIN_STEPS
     path = f"{root}/vgg16_pretrain.caffemodel"
     t = time.perf_counter()
@@ -3036,6 +3101,489 @@ def phase_gates(counters, card: str) -> dict:
                 seconds=seconds)
 
 
+# --- 12. mesh: the (data, space) mesh on torch.distributed --------------
+
+MESH_TRAIN_B = 16
+MESH_TIMED_STEPS = 3
+# the stem tail's row-shard inputs at 448x448 (pool1: 112 rows, bands of 56
+# for space = 2, of 28 for space = 4): (input rows, halo top, halo bottom)
+MESH_STEM_SHARDS = ((58, 0, 2), (57, 1, 0), (31, 1, 2))
+# each head of a row-sharded or batch-sharded forward against the one
+# process's on the same problem size, within this share of the head's
+# largest magnitude: the sound runs read 0 there, and 6.1e-3 against one
+# call of the whole batch, whose convs cuDNN runs with other bf16
+# algorithms; a halo zero-filled between the shards must read more (the
+# control in phase_mesh)
+MESH_HEAD_TOL = 1e-2
+# the wrappers whose first call in a meshed Detector call is recorded and
+# held against its plain version (mesh_against_plain)
+MESH_RECORDED = (("layers", "lrn_cuda"), ("layers", "lrn_maxpool_cuda"),
+                 ("googlenet", "stem_tail_cuda"),
+                 ("detector", "vote_boxes_batched"))
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def mesh_train_step(mesh, batch, dev, timed: int = 0) -> dict:
+    """One parity() step of googlenet_detectnet at 448x448 from the seeded
+    weights on this rank's share of ``batch`` (the whole batch without a
+    mesh), dropout on: the loss, the gradients and the parameters after it
+    (on the host), and with ``timed`` the median host-clock time of that
+    many further steps, each ending in a synchronize."""
+    from torchfcn.core.config import GridConfig, TrainConfig
+    from torchfcn.core.dtypes import DTypePolicy
+    from torchfcn.models import build as build_model
+    from torchfcn.parallel.distributed import shard_batch
+    from torchfcn.train.step import init_state, make_train_step
+    cfg = TrainConfig(grid=GridConfig(NET, NET, 16, 4),
+                      model="googlenet_detectnet")
+    state = init_state(build_model(cfg.model), cfg, rng_seed=SEED,
+                       device=dev, policy=DTypePolicy.parity())
+    step = make_train_step(cfg, mesh, preprocessing="shift127")
+    local = {k: torch.as_tensor(v).to(dev)
+             for k, v in shard_batch(batch, mesh).items()}
+    state, metrics = step(state, local)
+    torch.cuda.synchronize()
+    out = {"loss": float(metrics["loss_total"]), "lr": cfg.learning_rate,
+           "grads": {k: p.grad.cpu()
+                     for k, p in state.model.named_parameters()},
+           "params": {k: p.detach().cpu()
+                      for k, p in state.model.named_parameters()}}
+    if timed:
+        times = []
+        for _ in range(timed):
+            t0 = time.perf_counter()
+            step(state, local)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        out["step_ms"] = statistics.median(times) * 1e3
+    return out
+
+
+def check_mesh_step(got: dict, want: dict, what: str,
+                    routed: bool) -> dict:
+    """A meshed step against the one-process step, to the parity step's
+    limits (phase 9): the losses within PARITY_LOSS_RTOL; every gradient
+    within PARITY_CARD_GRAD_RTOL of its tensor's scale where both ran the
+    same shapes (``routed`` False), else, as card against CPU, the median
+    over weight tensors of the median entry's |diff| over the tensor's
+    scale within PARITY_CPU_GRAD_MEDIAN (a batch shard's activations may
+    round elsewhere, and a max pool then routes a near-tie apart); the
+    updated parameters, at least PARITY_PARAM_SHARE of each tensor within
+    PARITY_PARAM_LR_FRACTION * lr."""
+    if abs(got["loss"] - want["loss"]) > PARITY_LOSS_RTOL * abs(want["loss"]):
+        raise AssertionError(f"{what}: loss {got['loss']} vs {want['loss']}")
+    worst, medians = 0.0, []
+    for k, w in want["grads"].items():
+        g = got["grads"][k]
+        scale = float(w.abs().max()) or 1.0
+        worst = max(worst, float((g - w).abs().max()) / scale)
+        if w.dim() > 1:
+            medians.append(float((g - w).abs().median()) / scale)
+    median = statistics.median(medians)
+    if (not routed and worst > PARITY_CARD_GRAD_RTOL) or \
+            (routed and median > PARITY_CPU_GRAD_MEDIAN):
+        raise AssertionError(f"{what}: gradients max {worst:.3g}, median "
+                             f"{median:.3g} of scale")
+    share = min(float(((got["params"][k] - w).abs()
+                       <= PARITY_PARAM_LR_FRACTION * want["lr"])
+                      .float().mean())
+                for k, w in want["params"].items())
+    if share < PARITY_PARAM_SHARE:
+        raise AssertionError(f"{what}: updated parameters {share:.4f} "
+                             f"within the limit")
+    return {"loss": got["loss"], "grad_max_over_scale": worst,
+            "grad_median_over_scale": median, "param_share": share}
+
+
+def mesh_detector(name: str, mesh, dev):
+    from torchfcn.serve.detector import Detector
+    from torchfcn.serve.profile import bias_heads
+    det = Detector(name, max_candidates=K, dtype=torch.bfloat16,
+                   rng_seed=SEED, device=dev, mesh=mesh)
+    bias_heads(det)
+    return det
+
+
+def mesh_against_plain(calls: dict, batch: int, what: str) -> dict:
+    """Each kernel of a meshed Detector call held against its plain version
+    on the inputs of its first call there (``calls``: lists from
+    recorded_calls, by wrapper): this rank's share, ``lrn_maxpool``'s and
+    the stem tail's with their halo rows.  Both LRN kernels within
+    check_recorded_lrn's bounds, the stem tail within check_stem_outputs',
+    groupRectangles exact (phase_kernels' bounds)."""
+    where = f"the {what} call"
+    out = {}
+    if calls["lrn_cuda"] or calls["lrn_maxpool_cuda"]:
+        out.update(check_recorded_lrn(calls, batch, "mesh", where))
+        args = calls["lrn_maxpool_cuda"][0]
+        out["lrn_maxpool"]["halo"] = [args["halo_top"], args["halo_bottom"]]
+    if calls["stem_tail_cuda"]:
+        out["stem_tail"] = check_recorded_stem(calls["stem_tail_cuda"], batch,
+                                               "mesh", where)
+    args = calls["vote_boxes_batched"][0]
+    rects = args["propose_boxes"].float().contiguous()
+    valid = args["valid"].contiguous()
+    out["group_rects"] = dict(
+        shape=list(rects.shape), valid_candidates=int(valid.sum()),
+        **check_group_rects(rects, valid, where, timed=False,
+                            group_threshold=args["group_threshold"],
+                            eps=args["eps"]))
+    return out
+
+
+def mesh_heads(det, frames, mesh) -> list:
+    """The heads of ``det`` on the global ``frames`` (on a mesh, this
+    rank's data shard's, gathered over the space group) on the host."""
+    with torch.inference_mode():
+        if mesh is None:
+            heads = det._forward(torch.as_tensor(frames).cuda())
+        else:
+            share, banded = det._share(torch.as_tensor(frames))
+            heads = det._forward(share, None, banded)
+    return [h.float().cpu() for h in heads]
+
+
+def mesh_detect(name: str, mesh, frames, counters: dict) -> dict:
+    """One counted run of a meshed Detector (``mesh`` None: one process)
+    on the global ``frames``: its result and heads on the host, and the
+    launches of each kernel in this process; on a mesh also each kernel
+    against its plain version on its inputs in the counted call
+    (mesh_against_plain; those launches come after the count)."""
+    from torchfcn.models import googlenet, layers
+    from torchfcn.serve import detector
+    modules = {"layers": layers, "googlenet": googlenet,
+               "detector": detector}
+    det = mesh_detector(name, mesh, "cuda")
+    calls = {fn: [] for _, fn in MESH_RECORDED}
+    for fn in counters.values():
+        fn.launches = 0
+    with contextlib.ExitStack() as stack:
+        if mesh is not None:
+            for module, fn in MESH_RECORDED:
+                stack.enter_context(recorded_calls(modules[module], fn,
+                                                   calls[fn], limit=1))
+        res = det(frames)
+        torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    out = {"result": [t.cpu() for t in res],
+           "heads": mesh_heads(det, frames, mesh), "launches": launches,
+           "det": det}
+    if mesh is not None:
+        out["against_plain"] = mesh_against_plain(
+            calls, len(frames) // mesh.data, f"{name} {mesh.data}x"
+            f"{mesh.space} mesh rank {mesh.rank}")
+    return out
+
+
+def wrong_halo_heads(det, frames, mesh) -> list:
+    """The control of the heads' bound: the heads of a row-sharded ``det``
+    with every halo row that comes from a neighbour zero-filled (the
+    exchange still runs, so the ranks stay in step)."""
+    import torchfcn.parallel.halo as halo
+    real = halo._edges
+
+    def zeroed(*args):
+        return tuple(None if part is None else torch.zeros_like(part)
+                     for part in real(*args))
+
+    halo._edges = zeroed
+    try:
+        return mesh_heads(det, frames, mesh)
+    finally:
+        halo._edges = real
+
+
+def halo_share(det, frames) -> dict:
+    """The halo exchange's share of a row-sharded Detector call: host
+    clock around each exchange (synchronised) against the whole call
+    (median of REPS after WARMUP calls)."""
+    import torchfcn.parallel.halo as halo
+    spent = []
+    real = halo._edges
+
+    def timed(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(*args)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t0)
+        return out
+
+    halo._edges = timed
+    try:
+        calls, shares = [], []
+        for i in range(WARMUP + REPS):
+            del spent[:]
+            t0 = time.perf_counter()
+            det(frames)
+            torch.cuda.synchronize()
+            if i >= WARMUP:
+                calls.append(time.perf_counter() - t0)
+                shares.append(sum(spent))
+    finally:
+        halo._edges = real
+    call = statistics.median(calls)
+    return {"call_ms": call * 1e3, "halo_ms": statistics.median(shares) * 1e3,
+            "exchanges": len(spent),
+            "halo_share": statistics.median(shares) / call}
+
+
+def mesh_rank(frames, batch) -> dict:
+    """One of two processes that share the card over gloo: the (data=2)
+    train step, then the (space=2) bf16 and e5m2 Detectors and the
+    (data=2) Detector, each counted."""
+    from torchfcn.core.config import MeshConfig
+    from torchfcn.core.mesh import make_mesh
+    from torchfcn.ops.cuda import build
+    from torchfcn.ops.cuda.group_rects import group_rectangles_cuda
+    from torchfcn.ops.cuda.lrn import lrn_cuda
+    from torchfcn.ops.cuda.lrn_pool import lrn_maxpool_cuda
+    from torchfcn.ops.cuda.stem import stem_tail_cuda
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build.library()
+    counters = {"group_rects": group_rectangles_cuda, "lrn": lrn_cuda,
+                "lrn_maxpool": lrn_maxpool_cuda, "stem_tail": stem_tail_cuda}
+    data, space = make_mesh(MeshConfig(2, 1)), make_mesh(MeshConfig(1, 2))
+    out = {"train": mesh_train_step(data, batch, data.device,
+                                    timed=MESH_TIMED_STEPS)}
+    for key, name, mesh in (
+            ("space_bf16", "googlenet_detectnet", space),
+            ("space_e5m2", "googlenet_detectnet_serving", space),
+            ("data_bf16", "googlenet_detectnet", data)):
+        run = mesh_detect(name, mesh, frames, counters)
+        det = run.pop("det")
+        if key == "space_bf16":
+            run["halo"] = halo_share(det, frames)
+            run["wrong_halo_heads"] = wrong_halo_heads(det, frames, mesh)
+        out[key] = run
+    # the one-process runs in this process (mesh=None) on the batch in two
+    # calls of half the batch: the problem size of each rank's convs, by
+    # which cuDNN picks its bf16 algorithms
+    half = len(frames) // 2
+    for name in ("googlenet_detectnet", "googlenet_detectnet_serving"):
+        runs = [mesh_detect(name, None, part, counters)
+                for part in (frames[:half], frames[half:])]
+        out[name] = {key: [torch.cat(parts) for parts in
+                           zip(*(r[key] for r in runs))]
+                     for key in ("result", "heads")}
+    return out
+
+
+def check_stem_halo(rng, dev) -> dict:
+    """The stem-tail kernel on row shards (halo rows above and below read
+    as data) against its plain version with the same arguments, at the
+    row-sharded serving path's shard shapes, to the stem tail's bounds;
+    the numbers of the first (the shape rank 0 of a space = 2 mesh runs)."""
+    from torchfcn.models import build as build_model
+    from torchfcn.ops.cuda.stem import stem_tail_cuda
+    from torchfcn.ops.stem import stem_tail
+    model = build_model("googlenet_detectnet_serving")
+    model.init_weights(torch.Generator().manual_seed(SEED))
+    weights = [p.detach().to(dev, torch.bfloat16) for p in (
+        model.conv2_reduce.weight, model.conv2_reduce.bias,
+        model.conv2.weight, model.conv2.bias)]
+    store = torch.float8_e5m2
+    row = None
+    for rows, top, bottom in MESH_STEM_SHARDS:
+        shape = (BATCH, rows, 112, 64)
+        xs = (torch.from_numpy(np.abs(rng.standard_normal(shape, np.float32))
+                               * 40).to(dev).to(store))
+        got = stem_tail_cuda(xs, *weights, store, top, bottom)
+        want = stem_tail(xs, *weights, store, top, bottom)
+        if got.shape != want.shape or got.shape[1] != (rows - top - bottom) // 2:
+            raise AssertionError(f"stem_tail halo {shape}: {tuple(got.shape)}")
+        max_err, equal = check_stem_outputs(got, want, store,
+                                            f"stem_tail halo {shape}")
+        msg = (f"stem_tail {shape} halo {top}/{bottom} e5m2: max|err| "
+               f"{max_err:.3g}, {equal * 100:.4f} % bit-equal")
+        if row is None:
+            ms = busy_ms(lambda: stem_tail_cuda(xs, *weights, store, top,
+                                                bottom))
+            plain_ms = busy_ms(lambda: stem_tail(xs, *weights, store, top,
+                                                 bottom))
+            b, h, w, _ = shape
+            ho = got.shape[1]
+            rows2 = 2 * ho + (1 if bottom else 0)     # conv2 rows needed
+            macs = b * w * (h * 64 * 64 + rows2 * 192 * 64 * 9)
+            lrn_values = b * w * (h * 64 + rows2 * 192)
+            row = dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                       library_ms=None, shape=list(shape),
+                       halo=[top, bottom],
+                       **bound(xs.numel() + got.numel()
+                               + (64 * 64 + 192 * 576) * 2 + (64 + 192) * 4,
+                               tensor_ops=2 * macs,
+                               f32_ops=LRN_OPS * lrn_values,
+                               sfu_ops=LRN_SFU_OPS * lrn_values))
+            msg += (f", kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                    f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+        log("mesh", msg)
+    return row
+
+
+def head_errors(heads: list, want: list) -> list:
+    """Each head's max |diff| over the reference head's largest
+    magnitude."""
+    return [float((g - w).abs().max()) / float(w.abs().max())
+            for g, w in zip(heads, want)]
+
+
+def compare_runs(got: list, want: dict, what: str,
+                 other: dict = None) -> dict:
+    """The global result of a meshed Detector's ranks against the one
+    process's on the same problem size (``want``: its result and heads):
+    every rank the same result, equal to the one process's in every field;
+    each head within MESH_HEAD_TOL of its scale.  ``other``: a one-process
+    run in another process (one call of the whole batch), whose share of
+    equal box entries is reported."""
+    from torchfcn.serve.result import DetectionResult
+    first = got[0]["result"]
+    for r in got[1:]:
+        for a, b in zip(r["result"], first):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{what}: the ranks' results differ")
+    res = DetectionResult(*first)
+    # the data shards' heads, from each data shard's first space rank
+    shards = got if what.startswith("data") else got[:1]
+    heads = [torch.cat([r["heads"][i] for r in shards]) for i in range(2)]
+    errs = head_errors(heads, want["heads"])
+    if max(errs) > MESH_HEAD_TOL:
+        raise AssertionError(f"{what}: heads differ by {errs} of scale")
+    one = DetectionResult(*want["result"])
+    assert_same_result(res, one, f"{what} vs the one process")
+    out = {"detections": int(res.valid.sum()),
+           "heads_max_over_scale": errs,
+           "heads_bit_equal": all(torch.equal(g, w) for g, w in
+                                  zip(heads, want["heads"])),
+           "against_plain": [r["against_plain"] for r in got],
+           "launches_per_rank": [r["launches"] for r in got]}
+    if other is not None:
+        ref = DetectionResult(*other["result"])
+        out["other_process_boxes_equal_share"] = float(
+            (res.boxes == ref.boxes).float().mean())
+    return out
+
+
+def mesh_launches(mesh: dict, name: str) -> dict:
+    """A kernel's launches in each process of each mesh run: the NCCL 1 x 1
+    Detector's, and per rank the gloo runs'."""
+    two = mesh["gloo_two_ranks"]
+    out = {"nccl_1x1": [mesh["nccl"]["detector"]["launches_per_rank"][0]
+                        [name]]}
+    for key in ("space_bf16", "space_e5m2", "data_bf16"):
+        out[key] = [n[name] for n in two[key]["launches_per_rank"]]
+    return out
+
+
+def mesh_plain_err(mesh: dict, name: str) -> float:
+    """A kernel's largest max |err| against its plain version over the
+    recorded inputs of every rank of every meshed Detector run."""
+    runs = [mesh["nccl"]["detector"]] + [
+        mesh["gloo_two_ranks"][key]
+        for key in ("space_bf16", "space_e5m2", "data_bf16")]
+    return max(r[name]["max_abs_err"] for run in runs
+               for r in run["against_plain"] if name in r)
+
+
+def phase_mesh(rng, counters, card: str) -> dict:
+    """The (data, space) mesh: NCCL at world size 1, two gloo processes
+    sharing the card, the stem tail on halo rows; returns the numbers."""
+    from torchfcn.core.config import MeshConfig
+    from torchfcn.core.mesh import make_mesh
+    from torchfcn.parallel.distributed import (
+        initialize_distributed, run_ranks, shutdown_distributed)
+    out = {"stem_tail_halo": check_stem_halo(rng, "cuda")}
+    frames = rng.integers(0, 256, (BATCH, NET, NET, 3), dtype=np.uint8)
+    batch = train_batch(rng, MESH_TRAIN_B, NET, 4)
+
+    # the one process, mesh=None: the references
+    one_step = mesh_train_step(None, batch, "cuda", timed=MESH_TIMED_STEPS)
+    refs = {name: mesh_detect(name, None, frames, counters)
+            for name in ("googlenet_detectnet", "googlenet_detectnet_serving")}
+
+    # NCCL at world size 1: a 1 x 1 mesh, the collectives called
+    initialize_distributed(f"tcp://localhost:{free_port()}", 1, 0,
+                           device="cuda", backend="nccl")
+    try:
+        mesh = make_mesh(MeshConfig(1, 1))
+        nccl_step = mesh_train_step(mesh, batch, mesh.device,
+                                    timed=MESH_TIMED_STEPS)
+        nccl = {"train": check_mesh_step(nccl_step, one_step,
+                                         "NCCL 1x1 train step", False)}
+        run = mesh_detect("googlenet_detectnet", mesh, frames, counters)
+        run.pop("det")
+        nccl["detector"] = compare_runs(
+            [run], refs["googlenet_detectnet"], "NCCL 1x1 Detector")
+    finally:
+        shutdown_distributed()
+    nccl["train"]["step_ms"] = nccl_step["step_ms"]
+    nccl["train"]["one_process_step_ms"] = one_step["step_ms"]
+    log("mesh", f"NCCL world 1, 1x1 mesh: train step B={MESH_TRAIN_B} "
+        f"{NET}x{NET} equal to mesh=None within the parity limits "
+        f"({nccl['train']}); Detector googlenet_detectnet equal "
+        f"({nccl['detector']}) on {card}")
+
+    # two processes on the one card over gloo
+    t0 = time.perf_counter()
+    ranks = run_ranks(mesh_rank, 2, frames, batch, device="cuda",
+                      backend="gloo")
+    wall = time.perf_counter() - t0
+    two = {"train": check_mesh_step(ranks[0]["train"], one_step,
+                                    "gloo (data=2) train step", True)}
+    two["train"]["step_ms"] = ranks[0]["train"]["step_ms"]
+    # against the one process in rank 0's process, the batch in two calls
+    # of half its size (each rank's problem size), and reported against
+    # this process's one call of the whole batch
+    for key, name in (("space_bf16", "googlenet_detectnet"),
+                      ("space_e5m2", "googlenet_detectnet_serving"),
+                      ("data_bf16", "googlenet_detectnet")):
+        what = ("data" if key.startswith("data") else "space") + f" {name}"
+        two[key] = compare_runs([r[key] for r in ranks], ranks[0][name],
+                                what, other=refs[name])
+    two["space_bf16"]["halo"] = ranks[0]["space_bf16"]["halo"]
+    # the control: zero-filled halos break the heads' bound
+    wrong = head_errors(ranks[0]["space_bf16"]["wrong_halo_heads"],
+                        ranks[0]["googlenet_detectnet"]["heads"])
+    if max(wrong) <= MESH_HEAD_TOL:
+        raise AssertionError(f"control: zero-filled halos read {wrong} of "
+                             f"scale, within MESH_HEAD_TOL")
+    two["space_bf16"]["wrong_halo_heads_max_over_scale"] = wrong
+    two["seconds"] = wall
+    # every kernel of each path launched in every rank
+    for key, required in (("space_bf16", ("lrn", "lrn_maxpool", "group_rects")),
+                          ("space_e5m2", ("stem_tail", "group_rects")),
+                          ("data_bf16", ("lrn", "lrn_maxpool", "group_rects"))):
+        for r in ranks:
+            missing = [k for k in required if r[key]["launches"][k] == 0]
+            if missing:
+                raise AssertionError(f"{key}: a rank launched no {missing}")
+    out.update(nccl=nccl, gloo_two_ranks=two,
+               one_process_launches={k: v["launches"]
+                                     for k, v in refs.items()})
+    halo = two["space_bf16"]["halo"]
+    log("mesh", f"gloo, 2 processes on one card, {wall:.1f} s: (data=2) "
+        f"train step {two['train']}")
+    for key in ("space_bf16", "space_e5m2", "data_bf16"):
+        r = {k: v for k, v in two[key].items()
+             if k not in ("halo", "against_plain")}
+        log("mesh", f"{key}: equal to the one process, each kernel equal "
+            f"to its plain version on each rank's inputs; {r}")
+    log("mesh", f"halo exchange: {halo['exchanges']} exchanges, "
+        f"{halo['halo_ms']:.3f} ms of a {halo['call_ms']:.3f} ms "
+        f"row-sharded Detector call ({halo['halo_share'] * 100:.1f} %); "
+        f"train step: one process {one_step['step_ms']:.3f} ms, NCCL 1x1 "
+        f"mesh {nccl_step['step_ms']:.3f} ms, 2 gloo ranks "
+        f"{two['train']['step_ms']:.3f} ms (host clock, median of "
+        f"{MESH_TIMED_STEPS}) on {card}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3078,6 +3626,7 @@ def main() -> int:
     train = phase_train(rng, counters, card)
     data = phase_data(counters, card)
     gate = phase_gates(counters, card)
+    mesh = phase_mesh(rng, counters, card)
 
     meta = {
         "group_rects": ("torchfcn/csrc/group_rects.cu",
@@ -3106,12 +3655,21 @@ def main() -> int:
                     gate_scoring_launches={
                         tag: n[name] for tag, n in
                         gate["detection"]["scoring_launches"].items()},
+                    mesh_launches_per_rank=mesh_launches(mesh, name),
+                    mesh_max_abs_err=mesh_plain_err(mesh, name),
                     **rows[name]) for name in counters]
+    halo = mesh["stem_tail_halo"]
+    kernels.append(dict(
+        name="stem_tail_halo", route="cuda", source=meta["stem_tail"][0],
+        replaces=meta["stem_tail"][1],
+        launches=mesh_launches(mesh, "stem_tail")["space_e5m2"][0],
+        mesh_launches_per_rank=mesh_launches(mesh, "stem_tail"), **halo))
     print(json.dumps({"card": card, "stream": stream}), flush=True)
     print(json.dumps({"card": card, "families": families}), flush=True)
     print(json.dumps({"card": card, "train": train}), flush=True)
     print(json.dumps({"card": card, "data": data}), flush=True)
     print(json.dumps({"card": card, "gates": gate}), flush=True)
+    print(json.dumps({"card": card, "mesh": mesh}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -39,6 +39,7 @@ from tpufcn.core.config import GridConfig as JGridConfig
 from tpufcn.data.compositor import _scaled_iou
 from tpufcn.data.manifest import MaskSample as JMaskSample
 from torchfcn.core.config import DataConfig, GridConfig
+from torchfcn.core.mesh import Mesh
 from torchfcn.data import device_compositor as P
 from torchfcn.data.manifest import MaskSample
 from torchfcn.ops.image import scale_translate_weights
@@ -446,8 +447,15 @@ def test_refusals_and_loaders(data, tmp_path):
     with pytest.raises(ValueError, match="rotation"):
         P.DeviceCompositePipeline(data["lib"], data["bgs"], GRID,
                                   DataConfig(rotate=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="one device"):
-        _pipe(data, 0, mesh=object())
+    # a mesh is no longer refused: rank 3 of a (2, 2) mesh composes its
+    # share of the global batch (its scenes and rows), the one-device
+    # batch's, bit for bit
+    mesh = Mesh(2, 2, 3, {"mesh": None, "data": None, "space": None}, "cpu")
+    share, whole = _pipe(data, 0, mesh=mesh).batch(4), _pipe(data, 0).batch(4)
+    for key, value in whole.items():
+        want = value[2:4, HW // 2:] if key in ("image", "seg") \
+            else value[2:4]
+        assert torch.equal(share[key], want), key
     with pytest.raises(ValueError, match="net's size"):
         P.DeviceCompositePipeline(data["lib"], data["bgs"][:, :32],
                                   GRID, CFG, device="cpu")

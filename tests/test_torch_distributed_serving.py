@@ -1,0 +1,280 @@
+"""Serving and training entry points of the port on a mesh of gloo CPU
+ranks.
+
+* ``Detector(mesh=...)`` of ``vgg_detectnet_train`` (64x64, stride 8,
+  float32, the heads biased so that NMS has work) on a (data=2) and a
+  (data=2, space=2) mesh, against tpufcn's ``Detector(mesh=...)`` on
+  ``tests/conftest.py``'s virtual CPU devices and against the port's
+  one-device Detector, on the same weights and frames: per image the
+  sorted (box, label) lists equal, boxes, labels and valid masks exactly,
+  and the confidences (log votes) within 1 float32 ulp (XLA's CPU log, as
+  tests/test_torch_detector.py); every rank returns the global result.
+* The GoogLeNet DetectNet Detector, row-sharded against one device (the
+  port alone): the same exactness.
+* A Trainer whose ``cfg.mesh`` is (data=2), on 2 ranks, fed by a
+  ``DeviceBatchCache``: each parameter after 3 SGD steps within 1e-4 of
+  its leaf's largest move plus 1e-6 of its leaf's largest magnitude of a
+  one-device Trainer's on the same global batches (float32: the ranks sum
+  the gradients in another order, a bias's gradient sums every pixel's
+  with cancellation, and each update rounds the parameter),
+  snapshots on rank 0 only, and ``best`` decided by rank 0's validator
+  scores on every rank.
+* ``torchfcn.cli train --device cpu --device-data`` for 2 steps, with the
+  flags of tpufcn's ``train`` (which parses the same command line to the
+  same values), writing a snapshot, ``--metrics-out`` and the label
+  manifest tpufcn writes for the same manifest.
+* ``torchfcn.entry.dryrun_multichip(4)``."""
+
+import dataclasses
+import json
+import os
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from tpufcn.core.config import DetectorConfig as JDetectorConfig
+from tpufcn.core.config import GridConfig as JGridConfig
+from tpufcn.core.config import MeshConfig as JMeshConfig
+from tpufcn.core.mesh import make_mesh as jmake_mesh
+from tpufcn.serve import detector as jax_det
+from torchfcn.convert.from_jax import load_jax_params
+from torchfcn.core.config import DetectorConfig, GridConfig, TrainConfig
+from torchfcn.data.imageio import imwrite
+from torchfcn.parallel.distributed import run_ranks
+from torchfcn.serve.detector import Detector
+from torchfcn.serve.result import DetectionResult
+
+from test_torch_mesh_ranks import rank_detector, rank_trainer
+
+torch.set_num_threads(2)
+
+NAME, HW = "vgg_detectnet_train", 64
+BOX = np.float32([-24, -24, 120, 120])
+
+
+def _same_detections(got, want):
+    got_lists, want_lists = got.to_lists(), want.to_lists()
+    assert sum(map(len, got_lists)) > 0
+    assert len(got_lists) == len(want_lists)
+    for g_img, w_img in zip(got_lists, want_lists):
+        g_img, w_img = sorted(g_img), sorted(w_img)
+        assert [d[:2] for d in g_img] == [d[:2] for d in w_img]
+        np.testing.assert_array_max_ulp(
+            np.float32([d[2] for d in g_img]),
+            np.float32([d[2] for d in w_img]), maxulp=1)
+
+
+def _result(parts):
+    return DetectionResult(*(torch.as_tensor(np.array(p)) for p in parts))
+
+
+@pytest.mark.parametrize("data,space", [(2, 1), (2, 2)])
+def test_meshed_detector_matches_tpufcn_and_one_device(data, space):
+    jgrid = JGridConfig(HW, HW, stride=8, num_classes=2)
+    jcfg = JDetectorConfig(grid=jgrid, model=NAME, max_candidates=32)
+    jdet = jax_det.Detector(NAME, dtype=jnp.float32, config=jcfg,
+                            model_kwargs={"num_classes": 2}, rng_seed=0)
+    params = jax.tree.map(np.array, jdet.params)
+    params["params"]["cvg/classifier"]["conv"]["bias"][:] = 1.0
+    params["params"]["bbox/regressor"]["conv"]["bias"][:] = np.tile(BOX, 2)
+    mesh = jmake_mesh(JMeshConfig(data, space),
+                      devices=jax.devices("cpu")[:data * space])
+    jmesh_det = jax_det.Detector(NAME, dtype=jnp.float32, config=jcfg,
+                                 params=jax.tree.map(jnp.asarray, params),
+                                 model_kwargs={"num_classes": 2}, mesh=mesh)
+    cfg = DetectorConfig(grid=GridConfig(HW, HW, stride=8, num_classes=2),
+                         model=NAME, max_candidates=32)
+    det = Detector(NAME, config=cfg, dtype=torch.float32, device="cpu",
+                   model_kwargs={"num_classes": 2})
+    load_jax_params(det.model, params)
+    frames = np.random.default_rng(0).integers(
+        0, 256, (4, HW, HW, 3)).astype(np.uint8)
+    want = jmesh_det(frames)
+    one = det(frames)
+    got = run_ranks(rank_detector, data * space, NAME, det.model.state_dict(),
+                    {"num_classes": 2}, cfg, frames, data, space,
+                    torch.float32, threads=1)
+    for parts in got:
+        res = _result(parts)
+        for a, b in zip(res, got[0]):
+            assert torch.equal(a, b)        # every rank: the global result
+        assert tuple(res.boxes.shape) == tuple(np.asarray(want.boxes).shape)
+        _same_detections(res, _result(want))
+        _same_detections(res, one)
+    # a rank's ValueError comes back as the spawner's exception
+    with pytest.raises(Exception, match="ValueError: sharded serving needs "
+                                        "batch size divisible by the mesh "
+                                        "data axis"):
+        run_ranks(rank_detector, data * space, NAME, det.model.state_dict(),
+                  {"num_classes": 2}, cfg, frames[:3], data, space,
+                  torch.float32, threads=1)
+
+
+def test_row_sharded_googlenet_detector_matches_one_device():
+    """At 128x128 (an 8x8 grid), the heads' weights scaled by 0.1 and
+    biased (coverage 8, boxes as above) so that cells fire together."""
+    name, hw = "googlenet_detectnet", 128
+    cfg = DetectorConfig(grid=GridConfig(hw, hw, stride=16, num_classes=2),
+                         model=name, max_candidates=64)
+    det = Detector(name, config=cfg, dtype=torch.float32, device="cpu",
+                   model_kwargs={"num_classes": 2})
+    with torch.no_grad():
+        det.model.cvg.weight.mul_(0.1)
+        det.model.cvg.bias.fill_(8.0)
+        det.model.bbox.weight.mul_(0.1)
+        det.model.bbox.bias.copy_(torch.from_numpy(np.tile(BOX, 2)))
+    frames = np.random.default_rng(1).integers(
+        0, 256, (4, hw, hw, 3)).astype(np.uint8)
+    got = run_ranks(rank_detector, 4, name, det.model.state_dict(),
+                    {"num_classes": 2}, cfg, frames, 2, 2, torch.float32,
+                    threads=1)
+    _same_detections(_result(got[0]), det(frames))
+
+
+def test_detector_refuses_extra_axes():
+    class Extra:
+        shape = {"data": 1, "space": 1, "model": 2}
+    with pytest.raises(ValueError, match="extra non-trivial axes"):
+        Detector(NAME, mesh=Extra(), device="cpu")
+
+
+def _train_batches(n, seed=0, b=4):
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        xy = rng.uniform(0, HW * 0.6, (b, 4, 2))
+        wh = rng.uniform(6, HW * 0.5, (b, 4, 2))
+        out.append({
+            "image": rng.integers(0, 256, (b, HW, HW, 3), dtype=np.uint8),
+            "rects": np.concatenate([xy, wh], -1).astype(np.float32),
+            "labels": rng.integers(0, 2, (b, 4)).astype(np.int32),
+            "valid": rng.random((b, 4)) < 0.8})
+    return out
+
+
+def test_trainer_on_a_data_mesh(tmp_path):
+    cfg = TrainConfig(grid=GridConfig(HW, HW, 8, 2), model=NAME,
+                      optimizer="sgd", learning_rate=0.01, snapshot_every=2,
+                      max_iter=3, eval_every=1,
+                      snapshot_dir=str(tmp_path / "mesh"), log_every=1)
+    batches = _train_batches(2)
+    got = run_ranks(rank_trainer, 2, cfg, batches, 2, 1, [0.5, 0.9, 0.7],
+                    2, threads=1)
+    one_cfg = dataclasses.replace(cfg, snapshot_dir=str(tmp_path / "one"))
+    init, want, step, best, snaps, shape = rank_trainer(
+        one_cfg, batches, 1, 1, cache=2)
+    assert snaps == [2, 3] and shape is None
+    for r_init, params, r_step, r_best, r_snaps, shape in got:
+        assert r_step == step == 3 and shape == {"data": 2, "space": 1}
+        # rank 0's scores (0.5, 0.9, 0.7) decide: best at step 2
+        assert r_best == {"step": 2, "score": 0.9, "metric": "mAP"}
+        assert r_snaps == [2, 3]          # one directory, written by rank 0
+        for k, v in params.items():
+            assert torch.equal(r_init[k], init[k])
+            move = float((want[k] - init[k]).abs().max())
+            size = float(want[k].abs().max())
+            assert float((v - want[k]).abs().max()) <= \
+                1e-4 * move + 1e-6 * size, k
+    with open(tmp_path / "mesh" / "BEST.json") as f:
+        assert json.load(f)["metrics"] == {"mAP": 0.9}
+
+
+def _scene_files(tmp_path):
+    rng = np.random.default_rng(0)
+    lines, det_lines = [], []
+    for i in range(2):
+        img, mask = tmp_path / f"crop{i}.png", tmp_path / f"mask{i}.png"
+        imwrite(str(img), rng.integers(0, 256, (40, 48, 3), dtype=np.uint8))
+        m = np.zeros((40, 48, 3), np.uint8)
+        m[6:34, 8:40] = 255
+        imwrite(str(mask), m)
+        lines += [f"{img} {mask} {i + 1} 8 6 32 28", ""]
+        det_lines.append(f"{img} 8 6 32 28 {i + 1}")
+    bg = tmp_path / "bg.png"
+    imwrite(str(bg), rng.integers(0, 256, (224, 224, 3), dtype=np.uint8))
+    manifest, val = tmp_path / "train.txt", tmp_path / "val.txt"
+    manifest.write_text("\n".join(lines) + "\n")
+    val.write_text("\n".join(det_lines) + "\n")
+    return str(manifest), str(val), str(bg)
+
+
+def test_cli_train_writes_snapshot_and_metrics(tmp_path, capsys,
+                                               monkeypatch):
+    import tpufcn.cli as jcli
+    from tpufcn.data.manifest import read_mask_manifest as jread
+    from torchfcn import cli
+    manifest, val, bg = _scene_files(tmp_path)
+    snap, metrics = str(tmp_path / "snap"), str(tmp_path / "m.jsonl")
+    argv = ["train", "--recipe", "bounding_box", "--manifest", manifest,
+            "--device-data", "--backgrounds", bg, "--max-iter", "2",
+            "--batch-size", "2", "--iter-size", "1", "--snapshot-dir", snap,
+            "--metrics-out", metrics, "--warmup", "1", "--cache", "1",
+            "--eval-every", "2", "--val-manifest", val, "--val-limit", "2"]
+    seen = {}
+    monkeypatch.setattr(jcli, "_cmd_train", lambda a: seen.update(vars(a)))
+    jcli.main(argv)
+    cli.main(argv + ["--device", "cpu"])
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["trained_to"] == 2 and out["device"] == "cpu"
+    assert os.path.isfile(os.path.join(snap, "2.pt"))
+    with open(metrics) as f:
+        records = [json.loads(line) for line in f]
+    assert records and records[-1]["step"] == 2 and "val_mAP" in records[-1]
+    # tpufcn parses the same command line to the same values
+    args = cli_args(cli, argv + ["--device", "cpu"])
+    for key, value in seen.items():
+        if key != "fn" and key in args:
+            assert args[key] == value, key
+    # the label manifest tpufcn writes for the same manifest
+    labels = os.listdir(os.path.join(snap, "labels"))
+    assert len(labels) == 1
+    jpath = str(tmp_path / "jlabels.txt")
+    jread(manifest, snapshot_label_manifest=jpath)
+    with open(os.path.join(snap, "labels", labels[0])) as f, \
+            open(jpath) as g:
+        assert f.read() == g.read()
+
+
+def cli_args(cli, argv):
+    """The port's parsed arguments of ``argv``, without running them."""
+    seen = {}
+    real = cli._cmd_train
+    cli._cmd_train = lambda a: seen.update(vars(a))
+    try:
+        cli.main(argv)
+    finally:
+        cli._cmd_train = real
+    return seen
+
+
+@pytest.mark.parametrize("flags,match", [
+    (["--records", "r"], "record and VOC data"),
+    (["--manifest", "m", "--workers", "2"], "host compositor"),
+    (["--manifest", "m"], "host compositor"),
+    (["--manifest", "m", "--device-data", "--inspect-data", "d"], "viz.py"),
+])
+def test_cli_train_unported_flags_raise(flags, match):
+    from torchfcn import cli
+    with pytest.raises(NotImplementedError,
+                       match=f"ROADMAP Queue 1, .*{match}"):
+        cli.main(["train", "--device", "cpu"] + flags)
+
+
+def test_cli_train_refuses_a_larger_world(monkeypatch):
+    from torchfcn import cli
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(ValueError, match="world of 2"):
+        cli.main(["train", "--device", "cpu", "--manifest", "m",
+                  "--device-data"])
+
+
+def test_dryrun_multichip():
+    from torchfcn.entry import dryrun_multichip
+    results = dryrun_multichip(4)
+    assert len(results) == 4
+    for r in results:
+        assert r["mesh"] == {"data": 2, "space": 2}
+        assert r["served"] == {"dp": (8, 8), "spatial": (8, 8)}

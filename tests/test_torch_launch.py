@@ -5,10 +5,15 @@ node (``torchfcn/pointmap``) against tpufcn's.
   serves: seeded, a ``.caffemodel`` file, a Trainer snapshot directory;
   a missing weights path raises ``FileNotFoundError("PROVIDE PRETRAINED
   MODEL: ...")`` as tpufcn's does.
-* Every ``examples/*.launch.json``: its node types resolve; the params
-  the port does not have yet (``overlay_topic``, ``mesh``) raise
-  ``NotImplementedError`` naming their ROADMAP item, and the graph runs
-  once they are taken out; the unported node types raise the same way.
+* Every ``examples/*.launch.json``: its node types resolve; the param
+  the port does not have yet (``overlay_topic``) raises
+  ``NotImplementedError`` naming its ROADMAP item, and the graph runs once
+  it is taken out (and ``mesh``, which needs a process group of several
+  ranks); the unported node types raise the same way.
+* The multichip example's params without the overlay at (data=2,
+  space=2) on 4 gloo CPU ranks, rank 0 leading and the others following:
+  the rects it publishes per frame equal a one-device graph's on the same
+  weights (a snapshot with biased heads) and frames.
 * The topology of ``tests/test_launch_integration.py`` without its capture
   node: a detector and a point-map node on one bus in each package, the
   same frame and synthetic organized cloud published; the processed
@@ -159,13 +164,15 @@ def _on_cpu(spec):
     return spec
 
 
-UNPORTED_PARAMS = ("overlay_topic", "mesh")
+UNPORTED_PARAMS = ("overlay_topic",)
+# params that need a process group of several ranks (launched below)
+MULTI_RANK_PARAMS = ("mesh",)
 
 
 @pytest.mark.parametrize("name,unported", [
     ("empty.launch.json", ()),
     ("fcn_object_detector.launch.json", ("overlay_topic",)),
-    ("fcn_object_detector_multichip.launch.json", ("overlay_topic", "mesh")),
+    ("fcn_object_detector_multichip.launch.json", ("overlay_topic",)),
     ("fcn_point_map.launch.json", ()),
 ])
 def test_example_launch_specs(name, unported):
@@ -180,7 +187,7 @@ def test_example_launch_specs(name, unported):
     def without(keep):
         trial = copy.deepcopy(spec)
         for node in trial.values():
-            for p in UNPORTED_PARAMS:
+            for p in UNPORTED_PARAMS + MULTI_RANK_PARAMS:
                 if p != keep:
                     node.get("params", {}).pop(p, None)
         return trial
@@ -190,6 +197,49 @@ def test_example_launch_specs(name, unported):
             launch(without(param))
     graph = launch(without(None))
     assert sorted(graph.nodes) == sorted(spec)
+
+
+def test_multichip_example_on_four_ranks(tmp_path):
+    from torchfcn.models import build
+    from torchfcn.parallel.distributed import run_ranks
+    from test_torch_mesh_ranks import rank_launch
+    spec = _on_cpu(_example("fcn_object_detector_multichip.launch.json"))
+    params = spec["fcn_object_detector"]["params"]
+    assert params.pop("overlay_topic") and params["mesh"] == {"data": 4,
+                                                              "space": 2}
+    params["mesh"] = {"data": 2, "space": 2}
+    # seeded weights with the heads scaled by 0.1 and biased, so that
+    # cells fire together, as a Trainer snapshot
+    model = build("googlenet_detectnet")
+    model.init_weights(torch.Generator().manual_seed(0))
+    box = torch.tensor([-24.0, -24.0, 120.0, 120.0]).repeat(4)
+    with torch.no_grad():
+        model.cvg.weight.mul_(0.1)
+        model.cvg.bias.fill_(8.0)
+        model.bbox.weight.mul_(0.1)
+        model.bbox.bias.copy_(box)
+    snap = tmp_path / "snap"
+    snap.mkdir()
+    torch.save({"step": 1, "params": model.state_dict()}, snap / "1.pt")
+    params["pretrained_weights"] = str(snap)
+    rng = np.random.default_rng(0)
+    frames = [rng.integers(0, 256, (448, 448, 3)).astype(np.uint8)
+              for _ in range(8)]
+    got = run_ranks(rank_launch, 4, spec, frames, RECTS, threads=1)
+    assert got[1:] == [8, 8, 8]       # the followers ran rank 0's batch
+    one = copy.deepcopy(spec)
+    one["fcn_object_detector"]["params"].pop("mesh")
+    graph = launch(one)
+    want = []
+    graph.bus.subscribe(RECTS, lambda m: want.append(
+        (m.stamp, m.data.points, m.data.labels)), queue_size=64)
+    for i, f in enumerate(frames):
+        graph.bus.publish("image", f, stamp=float(i))
+        graph.spin()
+    graph.close()
+    graph.spin()
+    assert len(want) == 8 and sum(len(w[2]) for w in want) > 0
+    assert sorted(got[0]) == sorted(want)
 
 
 @pytest.mark.parametrize("ntype", ["capture", "boundary_refinement",

@@ -16,8 +16,9 @@ import numpy as np
 import pytest
 import torch
 
-from torchfcn.core.config import TrainConfig
+from torchfcn.core.config import MeshConfig, TrainConfig
 from torchfcn.core.dtypes import DTypePolicy, float32_exact
+from torchfcn.core.mesh import Mesh
 from torchfcn.models import build
 from torchfcn.models.layers import dropout
 from torchfcn.ops.caffe_layers import lrn_across_channels
@@ -101,9 +102,15 @@ def test_trainer_refuses_the_e5m2_serving_preset():
     cfg = TrainConfig(model="googlenet_detectnet_serving")
     with pytest.raises(ValueError, match="serving-only"):
         Trainer(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="one device"):
-        Trainer(TrainConfig(model="googlenet_detectnet"), mesh=object(),
-                device="cpu")
+    # a mesh is no longer refused: the Trainer runs on the mesh's device,
+    # and a cfg.mesh of several devices needs the process group first
+    mesh = Mesh(1, 1, 0, {"mesh": None, "data": None, "space": None}, "cpu")
+    trainer = Trainer(TrainConfig(model="googlenet_detectnet"), mesh=mesh,
+                      device="cuda")
+    assert trainer.mesh is mesh and trainer.device == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="initialize_distributed"):
+        Trainer(TrainConfig(model="googlenet_detectnet",
+                            mesh=MeshConfig(data=2)), device="cpu")
 
 
 def _tf32():

@@ -12,12 +12,15 @@ package's flags plus ``--device``.  Subcommands so far:
   pointmap  build the C++ point-map library
   gates     the tracked accuracy gates
   pretrain  the VGG16 backbone pretrain
+  train     train a recipe from scenes composed on the device
+            (``--manifest`` with ``--device-data``)
 
 Each prints JSON lines on stdout, as tpufcn's do; progress goes to stderr.
 Everything runs on the card (``--device cuda``, the default) or on the
 CPU (``--device cpu``).  Not ported yet (ROADMAP Queue 1): ``--video``
-(with tpufcn's ``--video-stride`` and ``--max-frames``), ``--overlay-dir``
-and the other subcommands.
+(with tpufcn's ``--video-stride`` and ``--max-frames``), ``--overlay-dir``,
+``train --records`` / ``--val-records``, ``--workers``, ``--inspect-data``
+and ``--manifest`` without ``--device-data``, and the other subcommands.
 
     python -m torchfcn.cli detect frame.png --model googlenet_detectnet
     python -m torchfcn.cli launch examples/fcn_point_map.launch.json \
@@ -35,6 +38,124 @@ import time
 
 def _log(msg: str) -> None:
     print(msg, file=sys.stderr, flush=True)
+
+
+RECORDS_MISSING = ("record shards are not ported yet: ROADMAP Queue 1, "
+                   "record and VOC data (train from --manifest with "
+                   "--device-data)")
+HOST_COMPOSITOR_MISSING = ("the host compositor is not ported yet: ROADMAP "
+                           "Queue 1, record and VOC data with the host "
+                           "compositor (pass --device-data)")
+INSPECT_MISSING = ("--inspect-data draws rect overlays, which are not "
+                   "ported yet: ROADMAP Queue 1, viz.py and the overlay")
+
+
+def _cmd_train(args):
+    """Train a recipe (``tpufcn/cli.py::_cmd_train``) from scenes composed
+    on the device.  The layout is the recipe's ``mesh`` (every recipe is
+    1 x 1, as in tpufcn); a process started in a larger world raises."""
+    import dataclasses
+    import os
+    from torchfcn import recipes
+    from torchfcn.data.device_compositor import DeviceCompositePipeline
+    from torchfcn.data.imageio import imread
+    from torchfcn.data.manifest import read_mask_manifest, snapshot_label_path
+    from torchfcn.data.raster import resize_linear_u8
+    from torchfcn.models import get_spec
+    from torchfcn.train.trainer import Trainer
+
+    if args.records or args.val_records:
+        raise NotImplementedError(RECORDS_MISSING)
+    if args.workers:
+        raise NotImplementedError(HOST_COMPOSITOR_MISSING)
+    if args.inspect_data:
+        raise NotImplementedError(INSPECT_MISSING)
+    if not args.manifest:
+        raise SystemExit("--manifest is required (with --device-data)")
+    if not args.device_data:
+        raise NotImplementedError(HOST_COMPOSITOR_MISSING)
+
+    cfg = recipes.get(args.recipe)
+    if args.max_iter:
+        cfg = dataclasses.replace(cfg, max_iter=args.max_iter)
+    if args.batch_size:
+        cfg = dataclasses.replace(cfg, data=dataclasses.replace(
+            cfg.data, batch_size=args.batch_size))
+    if args.snapshot_dir:
+        cfg = dataclasses.replace(cfg, snapshot_dir=args.snapshot_dir)
+    if args.iter_size and args.iter_size != 1:
+        cfg = dataclasses.replace(cfg, iter_size=args.iter_size)
+    if args.warmup:
+        cfg = dataclasses.replace(cfg, warmup_steps=args.warmup)
+
+    world = int(os.environ.get("WORLD_SIZE", 1))
+    if world != cfg.mesh.num_devices:
+        raise ValueError(
+            f"the recipe's mesh names {cfg.mesh.num_devices} device(s) "
+            f"({cfg.mesh.data}x{cfg.mesh.space}) but this process was "
+            f"started in a world of {world}; sharded training is "
+            "Trainer(cfg) with a cfg.mesh of that many devices")
+    # seg supervision follows the model's heads, not the recipe's name
+    heads = get_spec(cfg.model).heads
+    with_seg = "seg" in heads
+    samples = read_mask_manifest(
+        args.manifest, snapshot_label_manifest=snapshot_label_path(
+            os.path.join(cfg.snapshot_dir, "labels")))
+    pipe = DeviceCompositePipeline.from_samples(
+        samples, cfg.grid, cfg.data, backgrounds=args.backgrounds,
+        imread=imread, resize=resize_linear_u8, device=args.device,
+        seed=cfg.seed)
+
+    validator = None
+    if args.eval_every:
+        if not args.val_manifest:
+            raise SystemExit("--eval-every requires --val-manifest")
+        cfg = dataclasses.replace(cfg, eval_every=args.eval_every)
+        from torchfcn.train import validate as V
+        hw = (cfg.grid.im_height, cfg.grid.im_width)
+        if heads == ("seg",):
+            vi, vm = V.seg_val_set_from_manifest(
+                args.val_manifest, hw, limit=args.val_limit, imread=imread,
+                resize=resize_linear_u8)
+            validator = V.seg_validator(cfg.model, vi, vm)
+        else:
+            vi, vg = V.val_set_from_manifest(
+                args.val_manifest, hw, limit=args.val_limit, imread=imread,
+                resize=resize_linear_u8)
+            validator = V.detection_validator(cfg.model, vi, vg,
+                                              chunk=min(32, len(vi)))
+        _log(f"validation: {len(vi)} held-out samples every "
+             f"{args.eval_every} steps")
+    trainer = Trainer(cfg, with_seg=with_seg, validator=validator,
+                      device=args.device, log_sink=_log)
+    src = iter(pipe)
+    if args.cache > 0:
+        # compose N batches once and train epochs over them on the device
+        from torchfcn.data.pipeline import DeviceBatchCache
+        src = iter(DeviceBatchCache(trainer.put, src, args.cache))
+    state = None
+    if args.weights:
+        # fine-tune init (the reference's `caffe train --weights`): a
+        # .caffemodel (lenient, by name) or a snapshot directory; a
+        # snapshot in --snapshot-dir still resumes over it
+        from torchfcn.convert import resolve_weights
+        state = trainer.init_state()
+        resolve_weights(args.weights, state.model)
+    state = trainer.fit(src, state=state)
+    if args.metrics_out and trainer.writer:
+        with open(args.metrics_out, "w") as f:
+            for h in trainer.logger.history:
+                f.write(json.dumps(h) + "\n")
+        _log(f"wrote {len(trainer.logger.history)} metric records to "
+             f"{args.metrics_out}")
+    if trainer.best is not None:
+        _log(f"best checkpoint: step {trainer.best['step']} "
+             f"({trainer.best['metric']}={trainer.best['score']:.4f}) in "
+             f"{cfg.snapshot_dir}/best")
+    if trainer.writer:
+        print(json.dumps({"trained_to": state.step,
+                          "snapshot_dir": cfg.snapshot_dir,
+                          "best": trainer.best, "device": args.device}))
 
 
 def _cmd_gates(args):
@@ -184,14 +305,20 @@ def _cmd_launch(args):
         bus = RemoteTopicBus(args.bus)
     graph = launch(spec, bus=bus)
     published = 0
+    followers = [n for n in graph.nodes.values()
+                 if getattr(n, "following", False)]
+    if followers:
+        # a rank of a meshed detector other than rank 0: run rank 0's
+        # batches until its graph closes
+        print(json.dumps({"nodes": sorted(graph.nodes),
+                          "followed": [n.follow() for n in followers]}))
+        return
     if args.frames:
         for i, (_, img) in enumerate(_read_frames(args.frames)):
             graph.bus.publish(args.topic, img, stamp=float(i))
             graph.spin()
             published += 1
-        for node in graph.nodes.values():
-            if hasattr(node, "flush"):
-                node.flush()     # part-filled micro-batches at stream end
+        graph.close()    # part-filled micro-batches at stream end
         graph.spin()             # deliver what the flush published
     elif args.serve is not None:
         # a node-only process on a remote bus: spin until the time is up
@@ -414,6 +541,49 @@ def main(argv=None):
                     help="one JSON line per model instead of the table")
     pf.add_argument("--device", default="cuda")
     pf.set_defaults(fn=_cmd_profile)
+
+    t = sub.add_parser("train", help="train a recipe from scenes composed "
+                                     "on the device")
+    t.add_argument("--recipe", default="bounding_box")
+    t.add_argument("--manifest", default=None,
+                   help="mask manifest of the crops (with --device-data)")
+    t.add_argument("--records", default=None,
+                   help="record shards (not ported: raises)")
+    t.add_argument("--backgrounds", nargs="*", default=None)
+    t.add_argument("--max-iter", type=int, default=None)
+    t.add_argument("--batch-size", type=int, default=None)
+    t.add_argument("--iter-size", type=int, default=1,
+                   help="Caffe gradient accumulation: one update per N "
+                        "micro-batches, with their mean gradient")
+    t.add_argument("--snapshot-dir", default=None)
+    t.add_argument("--metrics-out", default=None, metavar="FILE",
+                   help="write the per-display-step metrics as JSONL")
+    t.add_argument("--weights", default=None,
+                   help="initial weights: a .caffemodel (lenient, by name) "
+                        "or a Trainer snapshot directory")
+    t.add_argument("--workers", type=int, default=0,
+                   help="host compositor workers (not ported: raises)")
+    t.add_argument("--warmup", type=int, default=0, metavar="N",
+                   help="linear lr warmup over the first N steps")
+    t.add_argument("--inspect-data", default=None, metavar="DIR",
+                   help="data dry-run as overlay PNGs (not ported: raises)")
+    t.add_argument("--device-data", action="store_true",
+                   help="compose scenes on the device (the only data path "
+                        "ported)")
+    t.add_argument("--cache", type=int, default=0,
+                   help="compose N batches once and train epochs over them "
+                        "on the device")
+    t.add_argument("--eval-every", type=int, default=0, metavar="N",
+                   help="score the held-out set every N steps and keep the "
+                        "best snapshot in <snapshot-dir>/best")
+    t.add_argument("--val-records", default=None, metavar="PREFIX",
+                   help="held-out record shards (not ported: raises)")
+    t.add_argument("--val-manifest", default=None, metavar="FILE",
+                   help="held-out manifest for --eval-every: detection "
+                        "lines, or the mask manifest for seg-only families")
+    t.add_argument("--val-limit", type=int, default=64)
+    t.add_argument("--device", default="cuda")
+    t.set_defaults(fn=_cmd_train)
 
     pm = sub.add_parser("pointmap", help="build the C++ point-map library")
     pm.set_defaults(fn=_cmd_pointmap)

@@ -5,8 +5,18 @@
 //     -> (B, Ho, Wo, 192)
 //
 // Replaces tpufcn/ops/pallas/stem.py::stem_tail_pallas ((8, 112, 112, 64)
-// -> (8, 56, 56, 192) on the serving path).  The storage type is a template
-// parameter:
+// -> (8, 56, 56, 192) on the serving path).
+//
+// Row shards (the (data, space) mesh, torchfcn/models/googlenet.py): the
+// input may carry halo rows, `halo_top` rows of the shard above and
+// `halo_bottom` of the shard below, which are real data and not conv2's zero
+// padding.  Only rows outside the input are padding.  The pool's windows
+// start at the shard's own rows 0, 2, 4, ... and the kernel writes exactly
+// the shard's (H - halo_top - halo_bottom) / 2 pooled rows; an interior
+// shard gives 1 row above (conv2) and 2 below (conv2 and the pool's third
+// row).  Without halos this is the whole frame's stem tail.
+//
+// The storage type is a template parameter:
 //   * bf16 computes what stem_tail_pallas computes;
 //   * e5m2 reads the serving model's e5m2 pool1 output, rounds the LRN1,
 //     conv2_reduce, conv2 and LRN2 outputs to bf16 and then to e5m2, as the
@@ -290,7 +300,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                      const float* __restrict__ br,
                      const __nv_bfloat16* __restrict__ w2,   // [dy][dx][co][ci]
                      const float* __restrict__ b2, S* __restrict__ y, int h,
-                     int w, int ho, int wo, int stripe_rows) {
+                     int w, int ho, int wo, int stripe_rows, int halo_top) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Geometry geo = geometry(w);
   // [3][wp][64] ring of reduce-conv rows (swizzled); column p + 1 holds
@@ -315,7 +325,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int b = blockIdx.y;
   const int oh0 = blockIdx.x * stripe_rows;
   const int oh1 = min(oh0 + stripe_rows, ho);
-  const int r_first = 2 * oh0, r_last = min(2 * oh1, h - 1);
+  // input rows (halo rows included); pool row oh starts at input row
+  // halo_top + 2 oh
+  const int r_first = halo_top + 2 * oh0;
+  const int r_last = min(halo_top + 2 * oh1, h - 1);
   const S* xi = x + static_cast<long long>(b) * h * w * kCin;
   S* yi = y + static_cast<long long>(b) * ho * wo * kCout;
 
@@ -399,6 +412,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   reduce_row(r_first);
   int tap_count = 0;   // taps multiplied so far: tap n sits in buffer n % 3
   for (int r = r_first; r <= r_last; ++r) {
+    const int rr = r - halo_top;   // the row within the shard
     reduce_row(r + 1);
 
     // ---- conv2 row r on the tensor cores: warp (wm, wn) takes m-tiles
@@ -486,9 +500,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     __syncthreads();
 
     // ---- the pool: the row's horizontal maxima, then the vertical max
-    // with the pool row's other conv2 rows.  Pool row oh reads conv2 rows
-    // 2 oh .. min(2 oh + 2, h - 1); window edges past the image are left
-    // out, which is the ceil-mode pool's max against -inf ----
+    // with the pool row's other conv2 rows.  Pool row oh reads the shard's
+    // conv2 rows 2 oh .. 2 oh + 2, those of them in the input; window edges
+    // past the input are left out, which is the ceil-mode pool's max
+    // against -inf at the frame's bottom ----
     for (int q = tid; q < wo * kChunks; q += kThreads) {
       const int ow = q / kChunks, chunk = q % kChunks;
       const __nv_bfloat16* px = stage + 2 * ow * kStage + chunk * 8;
@@ -503,15 +518,15 @@ __global__ void __launch_bounds__(kThreads, 1)
       unpack8(*m, v);   // the pool row's running max
 #pragma unroll
       for (int e = 0; e < 8; ++e) v[e] = fmaxf(v[e], hp[e]);
-      if ((r & 1) == 0) {
-        // the last row of pool row r/2 - 1 and the first of pool row r/2
+      if ((rr & 1) == 0) {
+        // the last row of pool row rr/2 - 1 and the first of pool row rr/2
         if (r > r_first)
-          Store<S>::put8(yi + (static_cast<long long>(r / 2 - 1) * wo + ow) *
+          Store<S>::put8(yi + (static_cast<long long>(rr / 2 - 1) * wo + ow) *
                                   kCout + chunk * 8, v);
-        if (r / 2 < oh1) *m = pack8(hp);
-      } else if (r == h - 1) {   // the image's last row ends pool row r/2
-        Store<S>::put8(yi + (static_cast<long long>(r / 2) * wo + ow) * kCout +
-                           chunk * 8, v);
+        if (rr / 2 < oh1) *m = pack8(hp);
+      } else if (r == h - 1) {   // the input's last row ends pool row rr/2
+        Store<S>::put8(yi + (static_cast<long long>(rr / 2) * wo + ow) *
+                                kCout + chunk * 8, v);
       } else {
         *m = pack8(v);
       }
@@ -524,9 +539,13 @@ template <typename S>
 int launch_stem_tail(const void* x, const void* wr, const void* br,
                      const void* w2, const void* b2, void* y, int batch,
                      int h, int w, int ho, int wo, int stripe_rows,
-                     int stripes, int shared_bytes, cudaStream_t stream) {
+                     int stripes, int shared_bytes, int halo_top,
+                     int halo_bottom, cudaStream_t stream) {
+  const int rows = h - halo_top - halo_bottom;   // the shard's own rows
   if (shared_bytes != shared_bytes_for(w) || h < 3 || w < 3 ||
-      w > kMaxWidth || ho != h / 2 || wo != w / 2 || stripe_rows < 1 ||
+      w > kMaxWidth || halo_top < 0 || halo_bottom < 0 || rows < 2 ||
+      ((halo_top || halo_bottom) && rows % 2) || ho != rows / 2 ||
+      wo != w / 2 || stripe_rows < 1 ||
       stripes < 1 || static_cast<long long>(stripes) * stripe_rows < ho ||
       (stripes - 1) * stripe_rows >= ho)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -539,7 +558,7 @@ int launch_stem_tail(const void* x, const void* wr, const void* br,
       static_cast<const S*>(x), static_cast<const __nv_bfloat16*>(wr),
       static_cast<const float*>(br), static_cast<const __nv_bfloat16*>(w2),
       static_cast<const float*>(b2), static_cast<S*>(y), h, w, ho, wo,
-      stripe_rows);
+      stripe_rows, halo_top);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -553,15 +572,17 @@ extern "C" int torchfcn_stem_tail(const void* x, const void* wr,
                                   const void* b2, void* y, int batch, int h,
                                   int w, int ho, int wo, int stripe_rows,
                                   int stripes, int shared_bytes, int dtype,
+                                  int halo_top, int halo_bottom,
                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kBFloat16)
     return launch_stem_tail<__nv_bfloat16>(x, wr, br, w2, b2, y, batch, h, w,
                                            ho, wo, stripe_rows, stripes,
-                                           shared_bytes, s);
+                                           shared_bytes, halo_top,
+                                           halo_bottom, s);
   if (dtype == kFloat8E5M2)
     return launch_stem_tail<uint8_t>(x, wr, br, w2, b2, y, batch, h, w, ho,
                                      wo, stripe_rows, stripes, shared_bytes,
-                                     s);
+                                     halo_top, halo_bottom, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

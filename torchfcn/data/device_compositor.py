@@ -490,7 +490,11 @@ class DeviceCompositePipeline:
     manifest's samples like the JAX package's constructor.  ``device``
     defaults to "cuda" and raises without CUDA; "cpu" composes on the CPU.
     ``seed`` seeds the pipeline's generator on the device.  ``mesh`` (a
-    batch sharded over several devices) is not ported and raises.
+    ``torchfcn.core.mesh.Mesh``; ``tpufcn/data/device_compositor.py:
+    461-469``): every rank draws the global batch's ``SceneDraws`` from the
+    same generator, composes only its batch shard on the mesh's device and
+    keeps its band of the image and seg rows; the batch is a
+    ``LocalBatch``, the rank's share of the one-device batch, bit for bit.
     """
 
     def __init__(self, library: CropLibrary, backgrounds, grid: GridConfig,
@@ -507,11 +511,9 @@ class DeviceCompositePipeline:
             raise ValueError(
                 "rotation augmentation is host-path only (it is gated off "
                 "in the reference too); unset DataConfig.rotate")
-        if mesh is not None:
-            raise NotImplementedError(
-                "composing a batch sharded over several devices is not "
-                "ported yet; the port composes on one device")
-        self.device = port_device(device, "DeviceCompositePipeline")
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None \
+            else port_device(device, "DeviceCompositePipeline")
         self.grid = grid
         self.box_capacity = box_capacity
         self.H, self.W = grid.im_height, grid.im_width
@@ -614,7 +616,18 @@ class DeviceCompositePipeline:
         return out
 
     def batch(self, batch_size: int) -> Dict[str, torch.Tensor]:
-        return self.compose(self.draw(batch_size))
+        """A batch of ``batch_size`` scenes; on a mesh this rank's share of
+        the global batch of ``batch_size`` scenes."""
+        draws = self.draw(batch_size)
+        if self.mesh is None:
+            return self.compose(draws)
+        from torchfcn.parallel.distributed import LocalBatch, batch_rows
+        bs, rows = batch_rows(self.mesh, batch_size, self.H)
+        out = self.compose(SceneDraws(**{
+            f.name: getattr(draws, f.name)[bs]
+            for f in dataclasses.fields(SceneDraws)}))
+        return LocalBatch({k: v[:, rows] if k in ("image", "seg") else v
+                           for k, v in out.items()})
 
     def __iter__(self) -> Iterator[Dict[str, torch.Tensor]]:
         while True:

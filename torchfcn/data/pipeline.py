@@ -35,7 +35,8 @@ class DeviceBatchCache:
     ``n_batches`` batches of ``source`` once, then yield them in turn,
     forever.  A batch that is already on the device (the device compositor's)
     is not copied; ``Trainer.put`` drops "seg" unless it trains the seg
-    head."""
+    head, and on a mesh keeps the rank's share (a ``LocalBatch``, which
+    ``fit`` does not shard again)."""
 
     def __init__(self, put: Callable[[Dict], Dict], source: Iterator[Dict],
                  n_batches: int):

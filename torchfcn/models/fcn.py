@@ -23,8 +23,9 @@ from typing import Dict, Optional
 
 import torch
 
+from torchfcn.core.mesh import Mesh
 from torchfcn.models.layers import (
-    CaffeConv, ZooModel, dropout, max_pool, nchw, nhwc)
+    CaffeConv, ZooModel, dropout, max_pool, nchw, nhwc, refuse_space)
 from torchfcn.models.vgg import VGG16Backbone
 from torchfcn.ops.caffe_layers import upsample_bilinear_separable
 
@@ -51,11 +52,12 @@ class FCN8sBBox(ZooModel):
         self.score_pool3 = CaffeConv(256, c, 1)
 
     def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None
-                ) -> Dict[str, torch.Tensor]:
+                generator: Optional[torch.Generator] = None,
+                mesh: Optional[Mesh] = None) -> Dict[str, torch.Tensor]:
+        refuse_space(mesh, "FCN-8s")
         taps = self.backbone(nchw(x))
         p5 = dropout(max_pool(taps["conv5_3"], 2, 2),      # stride 32
-                     self.dropout_rate, self.training, generator)
+                     self.dropout_rate, self.training, generator, mesh)
         # bbox branch, stride 8
         bboxes = upsample_bilinear_separable(
             _score(self.score_conv5_bbox, p5), 8, 4, 2)
@@ -83,8 +85,9 @@ class FCN32sSeg(ZooModel):
         self.score_fr_6 = CaffeConv(512, num_classes, 1)
 
     def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None
-                ) -> Dict[str, torch.Tensor]:
+                generator: Optional[torch.Generator] = None,
+                mesh: Optional[Mesh] = None) -> Dict[str, torch.Tensor]:
+        refuse_space(mesh, "FCN-32s")
         s = _score(self.score_fr_6, self.backbone(nchw(x))["conv5_3"])
         seg = upsample_bilinear_separable(s, 32, 16, 8)    # full resolution
         return {"seg": seg, "score": torch.softmax(seg, dim=-1)}

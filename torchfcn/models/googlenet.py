@@ -32,9 +32,11 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from torchfcn.core.mesh import Mesh, check_space_rows, space_sharded
 from torchfcn.models.layers import (
     CaffeConv, LRN, LRNMaxPool, ZooModel, dropout, max_pool, nchw, nhwc)
 from torchfcn.ops.cuda.stem import stem_tail_cuda
+from torchfcn.parallel.halo import attached, halo_rows
 
 # Inception block widths: (1x1, 3x3_reduce, 3x3, 5x5_reduce, 5x5, pool_proj)
 INCEPTION_CFG = {
@@ -73,7 +75,8 @@ class Inception(nn.Module):
     def _store(self, x: torch.Tensor) -> torch.Tensor:
         return x if self.store_dtype is None else x.to(self.store_dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                mesh: Optional[Mesh] = None) -> torch.Tensor:
         dtype = self.b1x1.dtype
         x = x.to(dtype)            # e5m2 input widens exactly
         convs = (self.b1x1, self.b3x3_reduce, self.b5x5_reduce)
@@ -81,9 +84,9 @@ class Inception(nn.Module):
             x, torch.cat([c.weight for c in convs]).to(dtype),
             torch.cat([c.bias for c in convs]).to(dtype))))
         b1, b3, b5 = torch.split(y, self.widths, dim=1)
-        b3 = self._store(F.relu(self.b3x3(b3.to(dtype))))
-        b5 = self._store(F.relu(self.b5x5(b5.to(dtype))))
-        bp = self._store(F.relu(self.pool_proj(max_pool(x, 3, 1, 1))))
+        b3 = self._store(F.relu(self.b3x3(b3.to(dtype), mesh)))
+        b5 = self._store(F.relu(self.b5x5(b5.to(dtype), mesh)))
+        bp = self._store(F.relu(self.pool_proj(max_pool(x, 3, 1, 1, mesh))))
         return torch.cat([b1, b3, b5, bp], dim=1)
 
 
@@ -92,7 +95,13 @@ class GoogLeNetDetectNet(ZooModel):
 
     Returns {"coverage": (B, H/16, W/16, C) float32 sigmoid probabilities,
              "bboxes": (B, H/16, W/16, 4C) float32 corner offsets}, NHWC.
+
+    ``mesh``: on a (data, space) mesh, ``frames`` are this rank's batch
+    shard and, with ``space > 1``, its band of rows (a multiple of 16),
+    and the outputs are this rank's rows of the heads.
     """
+
+    row_stride = 16          # the deepest stride: the band's rows divide
 
     FLAX_NAMES = {
         "conv1": "conv1/7x7_s2", "conv2_reduce": "conv2/3x3_reduce",
@@ -133,8 +142,11 @@ class GoogLeNetDetectNet(ZooModel):
         self.bbox = CaffeConv(cin, 4 * num_classes, 1)
 
     def forward(self, frames: torch.Tensor,
-                generator: Optional[torch.Generator] = None
-                ) -> Dict[str, torch.Tensor]:
+                generator: Optional[torch.Generator] = None,
+                mesh: Optional[Mesh] = None) -> Dict[str, torch.Tensor]:
+        if space_sharded(mesh):
+            check_space_rows(frames.shape[1] * mesh.space, mesh,
+                             self.row_stride)
         dtype = self.conv1.dtype
         store = self.store_dtype
         if store is not None and dtype != torch.bfloat16:
@@ -142,27 +154,33 @@ class GoogLeNetDetectNet(ZooModel):
                              f"parameters are {dtype}")
         # deploy_transform: Power shift -127 (deploy.prototxt:9-18)
         x = nchw((frames.to(torch.float32) - 127.0).to(dtype))
-        x = F.relu(self.conv1(x))
+        x = F.relu(self.conv1(x, mesh))
         if store is None:
-            x = max_pool(x, 3, 2)                          # pool1/3x3_s2
+            x = max_pool(x, 3, 2, mesh=mesh)               # pool1/3x3_s2
             x = self.norm1(x)                              # pool1/norm1
             x = F.relu(self.conv2_reduce(x))
-            x = F.relu(self.conv2(x))
-            x = self.norm2_pool2(x)            # conv2/norm2 + pool2/3x3_s2
+            x = F.relu(self.conv2(x, mesh))
+            x = self.norm2_pool2(x, mesh)      # conv2/norm2 + pool2/3x3_s2
         else:
-            x = max_pool(x.to(store), 3, 2)        # pool1, e5m2 in and out
-            # pool1/norm1 .. pool2/3x3_s2 in one kernel, e5m2 in and out
+            x = max_pool(x.to(store), 3, 2, mesh=mesh)   # pool1, e5m2
+            # pool1/norm1 .. pool2/3x3_s2 in one kernel, e5m2 in and out;
+            # on a row shard with conv2's halo above and conv2's and the
+            # pool's below, which the kernel reads as data
+            top, bottom = attached(1, 2, mesh, None) \
+                if space_sharded(mesh) else (0, 0)
+            x = halo_rows(x, 1, 2, mesh, fill=None)
             x = nchw(stem_tail_cuda(
                 nhwc(x).contiguous(), self.conv2_reduce.weight,
                 self.conv2_reduce.bias, self.conv2.weight, self.conv2.bias,
-                store))
-        x = self.inception_3a(x)
-        x = self.inception_3b(x)
-        x = max_pool(x, 3, 2)                              # pool3/3x3_s2
+                store, top, bottom))
+        x = self.inception_3a(x, mesh)
+        x = self.inception_3b(x, mesh)
+        x = max_pool(x, 3, 2, mesh=mesh)                   # pool3/3x3_s2
         for blk in ("4a", "4b", "4c", "4d", "4e", "5a", "5b"):
             # no pool between 4e and 5a: the stride stays 16
-            x = getattr(self, f"inception_{blk}")(x)
-        x = dropout(x.to(dtype), self.dropout_rate, self.training, generator)
+            x = getattr(self, f"inception_{blk}")(x, mesh)
+        x = dropout(x.to(dtype), self.dropout_rate, self.training, generator,
+                    mesh)
         coverage = torch.sigmoid(self.cvg(x).float())
         bboxes = self.bbox(x).float()
         return {"coverage": nhwc(coverage).contiguous(),

@@ -12,6 +12,16 @@ A conv computes in its parameters' dtype unless a ``DTypePolicy`` gave it
 a compute dtype (``torchfcn.core.dtypes``); the models read each conv's
 ``dtype`` to cast activations.  ``dropout`` is the models' train-mode
 dropout.
+
+Row sharding (``mesh`` with ``space > 1``, ``torchfcn.core.mesh``): each
+rank holds an equal band of every frame's rows.  A conv or pool of kernel
+k, stride s and padding p reads p halo rows from the rank above and
+k - s - p from the rank below (``torchfcn.parallel.halo``), filled as the
+layer pads at the frame's edges, and runs with no row padding of its own:
+each rank then computes exactly its own output rows, which needs each
+band's rows to divide by s (``core.mesh.check_space_rows``).  A ceil-mode
+pool without padding takes no fill at the bottom edge, where its ceil mode
+reproduces the global edge.  The across-channel LRN needs no halo.
 """
 
 from __future__ import annotations
@@ -19,14 +29,30 @@ from __future__ import annotations
 import math
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from torchfcn.core.mesh import Mesh, space_sharded
 from torchfcn.ops.caffe_layers import (
-    avg_pool_caffe, max_pool_caffe, upsample_bilinear_separable)
+    avg_pool_caffe, bilinear_upsample_matrix, max_pool_caffe,
+    upsample_bilinear_separable)
 from torchfcn.ops.cuda.lrn import lrn_cuda
 from torchfcn.ops.cuda.lrn_pool import lrn_maxpool_cuda
+from torchfcn.parallel.halo import attached, halo_rows
+
+SPACE_MISSING = ("space sharding of the {} family is not ported yet: ROADMAP "
+                 "Queue 1, what stays open of multi-GPU: space sharding of the "
+                 "FCN, pyramid and ResNet-FPN families (their upsampling "
+                 "needs halos of its own)")
+
+
+def refuse_space(mesh: Optional[Mesh], family: str) -> None:
+    """The families whose forward has no row-sharded form raise under
+    ``space > 1``; the data axis serves and trains them."""
+    if space_sharded(mesh):
+        raise NotImplementedError(SPACE_MISSING.format(family))
 
 
 def nhwc(x: torch.Tensor) -> torch.Tensor:
@@ -37,10 +63,15 @@ def nchw(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 3, 1, 2)
 
 
-def max_pool(x: torch.Tensor, kernel: int, stride: int,
-             pad: int = 0) -> torch.Tensor:
-    """Caffe ceil-mode max pool on NCHW."""
-    return nchw(max_pool_caffe(nhwc(x), kernel, stride, pad))
+def max_pool(x: torch.Tensor, kernel: int, stride: int, pad: int = 0,
+             mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """Caffe ceil-mode max pool on NCHW; on a row shard, with its halo
+    (-inf past the frame where the pool pads, none where it does not)."""
+    if not space_sharded(mesh):
+        return nchw(max_pool_caffe(nhwc(x), kernel, stride, pad))
+    x = halo_rows(x, pad, max(kernel - stride - pad, 0), mesh,
+                  fill=float("-inf") if pad else None)
+    return nchw(max_pool_caffe(nhwc(x), kernel, stride, (0, pad)))
 
 
 def check_store_dtype(store_dtype) -> None:
@@ -58,13 +89,29 @@ def avg_pool(x: torch.Tensor, kernel: int, stride: int,
     return nchw(avg_pool_caffe(nhwc(x), kernel, stride, pad))
 
 
-def upsample_factor(x: torch.Tensor, factor: int) -> torch.Tensor:
+def upsample_factor(x: torch.Tensor, factor: int,
+                    mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Caffe FCN upsampling by ``factor`` on NCHW: the fixed bilinear
     deconvolution with k = 2f - f%2, s = f, p = ceil((f - 1) / 2), in its
-    separable form; the input dtype out."""
+    separable form; the input dtype out.  On a row shard: the input rows
+    with their halo (zeros past the frame) through the band of the global
+    row matrix that makes this rank's f x rows output rows."""
     kernel = 2 * factor - factor % 2
     pad = math.ceil((factor - 1) / 2.0)
-    return nchw(upsample_bilinear_separable(nhwc(x), kernel, factor, pad))
+    if not space_sharded(mesh):
+        return nchw(upsample_bilinear_separable(nhwc(x), kernel, factor, pad))
+    rows = x.shape[-2]
+    # output row o reads input rows i with 0 <= o + pad - i f < kernel
+    top, bottom = (kernel - 1 - pad) // factor, (factor - 1 + pad) // factor
+    first = mesh.space_index * rows
+    full = bilinear_upsample_matrix(rows * mesh.space, kernel, factor, pad)
+    band = np.zeros((full.shape[0], top + full.shape[1] + bottom), np.float32)
+    band[:, top:top + full.shape[1]] = full
+    band = band[first * factor:(first + rows) * factor,
+                first:first + top + rows + bottom]
+    x = halo_rows(x, top, bottom, mesh, fill=0.0)
+    return nchw(upsample_bilinear_separable(nhwc(x), kernel, factor, pad,
+                                            uy=torch.from_numpy(band)))
 
 
 class CaffeConv(nn.Conv2d):
@@ -95,10 +142,18 @@ class CaffeConv(nn.Conv2d):
         """The dtype the convolution computes in."""
         return self.compute_dtype or self.weight.dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                mesh: Optional[Mesh] = None) -> torch.Tensor:
         dtype = self.dtype       # no copy where a tensor already has it
         bias = None if self.bias is None else self.bias.to(dtype)
-        return self._conv_forward(x.to(dtype), self.weight.to(dtype), bias)
+        if not space_sharded(mesh) or self.kernel_size[0] == 1:
+            return self._conv_forward(x.to(dtype), self.weight.to(dtype),
+                                      bias)
+        (k, _), (s, _), (p, pw) = (self.kernel_size, self.stride,
+                                   self.padding)
+        x = halo_rows(x.to(dtype), p, max(k - s - p, 0), mesh, fill=0.0)
+        return F.conv2d(x, self.weight.to(dtype), bias, self.stride, (0, pw),
+                        self.dilation, self.groups)
 
 
 class Conv(CaffeConv):
@@ -172,17 +227,30 @@ class ZooModel(nn.Module):
 
 
 def dropout(x: torch.Tensor, rate: float, training: bool,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
+            generator: Optional[torch.Generator],
+            mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Inverted dropout (Flax ``nn.Dropout``): in training, each value is
     kept with probability ``1 - rate`` and scaled by ``1 / (1 - rate)``,
     else zeroed, from uniform draws of ``generator`` (on ``x``'s device)
-    in NHWC order; the identity in eval mode or at rate 0."""
+    in NHWC order; the identity in eval mode or at rate 0.  On a mesh every
+    rank draws the global batch's values (its generator in step with the
+    others') and keeps its batch shard and rows, so that N ranks drop what
+    one device would."""
     if not training or rate == 0.0:
         return x
     if generator is None:
         raise ValueError("dropout in train mode draws from an explicit "
                          "torch.Generator: pass generator=")
-    draws = torch.rand(nhwc(x).shape, generator=generator, device=x.device)
+    b, c, h, w = x.shape
+    if mesh is None:
+        draws = torch.rand((b, h, w, c), generator=generator,
+                           device=x.device)
+    else:
+        draws = torch.rand((b * mesh.data, h * mesh.space, w, c),
+                           generator=generator, device=x.device)
+        s = mesh.space_index if space_sharded(mesh) else 0
+        draws = draws[mesh.data_index * b:(mesh.data_index + 1) * b,
+                      s * h:(s + 1) * h]
     keep = nchw(draws) >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
                                                            device=x.device))
@@ -201,8 +269,16 @@ class LRN(nn.Module):
 
 class LRNMaxPool(LRN):
     """LRN then the Caffe ceil-mode 3x3/2 max pool, through the fused
-    ``lrn_maxpool`` kernel."""
+    ``lrn_maxpool`` kernel; on a row shard, on the shard and the rank
+    below's first row (none at the frame's bottom)."""
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                mesh: Optional[Mesh] = None) -> torch.Tensor:
+        if not space_sharded(mesh):
+            return nchw(lrn_maxpool_cuda(nhwc(x).contiguous(), self.size,
+                                         self.alpha))
+        top, bottom = attached(0, 1, mesh, None)
+        x = halo_rows(x, 0, 1, mesh, fill=None)
         return nchw(lrn_maxpool_cuda(nhwc(x).contiguous(), self.size,
-                                     self.alpha))
+                                     self.alpha, halo_top=top,
+                                     halo_bottom=bottom))

@@ -24,9 +24,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from torchfcn.core.mesh import Mesh
 from torchfcn.models.layers import (
     CaffeConv, Conv, GroupNorm, ZooModel, check_store_dtype, dropout, nchw,
-    nhwc)
+    nhwc, refuse_space)
 
 
 def _max_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
@@ -105,8 +106,9 @@ class ResNetFPNDetectNet(ZooModel):
         self.bbox = CaffeConv(f, 4 * num_classes, 1)
 
     def forward(self, frames: torch.Tensor,
-                generator: Optional[torch.Generator] = None
-                ) -> Dict[str, torch.Tensor]:
+                generator: Optional[torch.Generator] = None,
+                mesh: Optional[Mesh] = None) -> Dict[str, torch.Tensor]:
+        refuse_space(mesh, "ResNet-FPN")
         dtype = self.stem_conv.dtype
         x = nchw(((frames.to(torch.float32) - 127.0) / 128.0).to(dtype))
         y = F.relu(self.stem_gn(self.stem_conv(x))).to(dtype)
@@ -123,7 +125,7 @@ class ResNetFPNDetectNet(ZooModel):
         p5 = nhwc(self.lat5(c5.to(dtype)))
         up5 = nchw(p5.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2))
         p4 = F.relu(self.smooth4(self.lat4(c4.to(dtype)) + up5))
-        p4 = dropout(p4, self.dropout_rate, self.training, generator)
+        p4 = dropout(p4, self.dropout_rate, self.training, generator, mesh)
         coverage = torch.sigmoid(self.cvg(p4).float())
         bboxes = self.bbox(p4).float()
         return {"coverage": nhwc(coverage).contiguous(),

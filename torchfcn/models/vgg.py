@@ -28,9 +28,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from torchfcn.core.mesh import Mesh, check_space_rows, space_sharded
 from torchfcn.models.layers import (
     CaffeConv, ZooModel, avg_pool, check_store_dtype, dropout, max_pool, nchw,
-    nhwc, upsample_factor)
+    nhwc, refuse_space, upsample_factor)
 
 # VGG16 conv stack: (stage, n_convs, width)
 VGG_STAGES = ((1, 2, 64), (2, 2, 128), (3, 3, 256), (4, 3, 512), (5, 3, 512))
@@ -59,19 +60,20 @@ class VGG16Backbone(nn.Module):
                                 CaffeConv(cin, width, 3, pad=1))
                 cin = width
 
-    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def forward(self, x: torch.Tensor,
+                mesh: Optional[Mesh] = None) -> Dict[str, torch.Tensor]:
         dtype = self.conv1_1.dtype
         taps = {}
         for stage, n_convs, _ in VGG_STAGES:
             for i in range(1, n_convs + 1):
-                x = getattr(self, f"conv{stage}_{i}")(x.to(dtype))
+                x = getattr(self, f"conv{stage}_{i}")(x.to(dtype), mesh)
                 if stage < 5 or i < 3 or self.relu5_3:
                     x = F.relu(x)
                 if self.store_dtype is not None and stage <= self.store_stages:
                     x = x.to(self.store_dtype)
             taps[f"conv{stage}_{n_convs}"] = x
             if stage < 5:
-                x = max_pool(x, 2, 2)
+                x = max_pool(x, 2, 2, mesh=mesh)
                 taps[f"pool{stage}"] = x
         return taps
 
@@ -91,7 +93,11 @@ class _Heads(ZooModel):
 
 
 class VGGDetectNet(_Heads):
-    """Reference bounding_box train net head (stride 8)."""
+    """Reference bounding_box train net head (stride 8).  On a mesh with
+    ``space > 1`` it runs row-sharded (``models/layers.py``): each rank's
+    band of rows, a multiple of 16, in and out."""
+
+    row_stride = 16
 
     def __init__(self, num_classes: int = 11,
                  store_dtype: Optional[torch.dtype] = None,
@@ -104,13 +110,15 @@ class VGGDetectNet(_Heads):
         self.bbox = CaffeConv(512, 4 * num_classes, 1)
 
     def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None
-                ) -> Dict[str, torch.Tensor]:
+                generator: Optional[torch.Generator] = None,
+                mesh: Optional[Mesh] = None) -> Dict[str, torch.Tensor]:
+        if space_sharded(mesh):
+            check_space_rows(x.shape[1] * mesh.space, mesh, self.row_stride)
         dtype = self.cvg.dtype
-        y = self.backbone(nchw(x))["conv5_3"]              # stride 16
-        y = upsample_factor(y.to(dtype), 2)                # stride 8
+        y = self.backbone(nchw(x), mesh)["conv5_3"]        # stride 16
+        y = upsample_factor(y.to(dtype), 2, mesh)          # stride 8
         return self._heads(dropout(y, self.dropout_rate, self.training,
-                                   generator))
+                                   generator, mesh))
 
 
 class VGGPyramidDetectNet(_Heads):
@@ -134,8 +142,9 @@ class VGGPyramidDetectNet(_Heads):
         self.bbox = CaffeConv(width, 4 * num_classes, 1)
 
     def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None
-                ) -> Dict[str, torch.Tensor]:
+                generator: Optional[torch.Generator] = None,
+                mesh: Optional[Mesh] = None) -> Dict[str, torch.Tensor]:
+        refuse_space(mesh, "VGG pyramid")
         dtype = self.cvg.dtype
         taps = self.backbone(nchw(x))
         c43 = taps["conv4_3"]                          # stride 8
@@ -157,4 +166,4 @@ class VGGPyramidDetectNet(_Heads):
         y = torch.cat([t.to(cat_dtype) for t in
                        [taps["conv5_3"], taps["pool4"]] + pyramid], dim=1)
         return self._heads(dropout(y, self.dropout_rate, self.training,
-                                   generator))
+                                   generator, mesh))

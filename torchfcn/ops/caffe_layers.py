@@ -13,7 +13,7 @@ the transposed conv itself, which the tests hold it against.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -57,11 +57,12 @@ def pooled_size(n: int, kernel: int, stride: int, pad: int = 0) -> int:
 
 
 def max_pool_caffe(x: torch.Tensor, kernel: int, stride: int,
-                   pad: int = 0) -> torch.Tensor:
+                   pad=0) -> torch.Tensor:
     """Ceil-mode max pooling over NHWC: the last window may hang past the
     edge and maxes against -inf (Caffe's geometry is torch's ceil_mode).
-    float8 input (which ``max_pool2d`` does not take) is pooled in bf16 and
-    returned in float8: the max of float8 values is exact."""
+    ``pad`` is one padding or (rows, columns).  float8 input (which
+    ``max_pool2d`` does not take) is pooled in bf16 and returned in float8:
+    the max of float8 values is exact."""
     if x.dtype in (torch.float8_e5m2, torch.float8_e4m3fn):
         return max_pool_caffe(x.to(torch.bfloat16), kernel, stride,
                               pad).to(x.dtype)
@@ -129,15 +130,18 @@ def bilinear_upsample_matrix(in_size: int, kernel: int, stride: int,
 
 
 def upsample_bilinear_separable(x: torch.Tensor, kernel: int, stride: int,
-                                pad: int) -> torch.Tensor:
+                                pad: int, uy: Optional[torch.Tensor] = None
+                                ) -> torch.Tensor:
     """The fixed bilinear depthwise deconvolution of
     :func:`upsample_bilinear_caffe` over NHWC as two dense products, H then
     W, with the float32 interpolation matrices.  The products run in
     float64, which TF32 never touches, so they are at least as exact as
     IEEE float32 whatever ``torch.backends`` allows; the result is rounded
-    once to the input dtype."""
-    uy = torch.from_numpy(bilinear_upsample_matrix(x.shape[-3], kernel,
-                                                   stride, pad))
+    once to the input dtype.  ``uy`` replaces the row matrix (a band of a
+    larger frame's, for a row shard)."""
+    if uy is None:
+        uy = torch.from_numpy(bilinear_upsample_matrix(x.shape[-3], kernel,
+                                                       stride, pad))
     ux = torch.from_numpy(bilinear_upsample_matrix(x.shape[-2], kernel,
                                                    stride, pad))
     wide = dict(dtype=torch.float64, device=x.device)

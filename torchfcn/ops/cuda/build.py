@@ -48,9 +48,9 @@ _SIGNATURES = {
     "torchfcn_lrn_maxpool": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I,
                              _I, _I, _I, _I, _I, _I, _P),
     # x, wr, br, w2, b2, y, batch, h, w, ho, wo, stripe rows, stripes,
-    # shared bytes, dtype, stream
+    # shared bytes, dtype, halo top, halo bottom, stream
     "torchfcn_stem_tail": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                           _I, _I, _P),
+                           _I, _I, _I, _I, _P),
 }
 
 # dtype codes of csrc/common.cuh

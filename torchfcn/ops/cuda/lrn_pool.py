@@ -6,6 +6,13 @@ plain version is ``lrn_maxpool`` below.  The kernel's geometry
 (``lrn_maxpool_plan``) is computed here and checked again by the kernel.
 The wrapper calls the custom op ``torchfcn::lrn_maxpool``, whose backward
 is the vector-Jacobian product of the plain version, as ``lrn.py``'s.
+
+On a row shard (the (data, space) mesh) the wrapper takes the shard with
+its neighbours' rows, ``halo_top`` above and ``halo_bottom`` below, runs
+the unchanged kernel on it and keeps the pool rows whose windows start at
+the shard's own rows: an interior shard of even rows with one row below
+pools to exactly its rows, and at the frame's bottom the ceil mode gives the
+global edge.
 """
 
 from __future__ import annotations
@@ -83,10 +90,28 @@ def lrn_maxpool_plan(batch: int, h: int, w: int, channels: int,
     return best[1]
 
 
-def lrn_maxpool(x: torch.Tensor, size: int = 5,
-                alpha: float = 1e-4) -> torch.Tensor:
-    """The plain version: LRN (k 1) then the 3x3/2 ceil-mode max pool."""
-    return max_pool_caffe(lrn_across_channels(x, size, alpha), 3, 2)
+def _shard_rows(x: torch.Tensor, y: torch.Tensor, halo_top: int,
+                halo_bottom: int) -> torch.Tensor:
+    """The pool rows of ``y`` (pooled from ``x``) whose windows start at the
+    shard's own rows."""
+    if not (halo_top or halo_bottom):
+        return y
+    rows = x.shape[1] - halo_top - halo_bottom
+    if halo_top < 0 or halo_bottom < 0 or halo_top % 2 or rows < 2 \
+            or rows % 2:
+        raise ValueError(f"lrn_maxpool on a row shard needs an even halo "
+                         f"above and an even count of the shard's own rows, "
+                         f"got {x.shape[1]} rows with halos {halo_top} and "
+                         f"{halo_bottom}")
+    return y[:, halo_top // 2:halo_top // 2 + rows // 2]
+
+
+def lrn_maxpool(x: torch.Tensor, size: int = 5, alpha: float = 1e-4,
+                halo_top: int = 0, halo_bottom: int = 0) -> torch.Tensor:
+    """The plain version: LRN (k 1) then the 3x3/2 ceil-mode max pool; on a
+    row shard with halo rows, the shard's pool rows."""
+    y = max_pool_caffe(lrn_across_channels(x, size, alpha), 3, 2)
+    return _shard_rows(x, y, halo_top, halo_bottom)
 
 
 @torch.library.custom_op("torchfcn::lrn_maxpool", mutates_args=(),
@@ -139,14 +164,16 @@ lrn_maxpool_op.register_autograd(_lrn_maxpool_backward,
                                  setup_context=save_input)
 
 
-def lrn_maxpool_cuda(x: torch.Tensor, size: int = 5,
-                     alpha: float = 1e-4) -> torch.Tensor:
+def lrn_maxpool_cuda(x: torch.Tensor, size: int = 5, alpha: float = 1e-4,
+                     halo_top: int = 0, halo_bottom: int = 0) -> torch.Tensor:
     """LRN (beta 0.75, k 1) then the 3x3/2 ceil-mode max pool:
     (B, H, W, C) NHWC -> (B, ceil((H-3)/2)+1, ceil((W-3)/2)+1, C); the
     kernel on a CUDA tensor, the plain version on a CPU one; differentiable
-    on both."""
+    on both.  On a row shard whose first ``halo_top`` and last
+    ``halo_bottom`` rows are its neighbours': the shard's pool rows."""
     build.check_device(x, "lrn_maxpool_cuda")
-    return lrn_maxpool_op(x, size, alpha)
+    return _shard_rows(x, lrn_maxpool_op(x, size, alpha), halo_top,
+                       halo_bottom)
 
 
 lrn_maxpool_cuda.launches = 0

@@ -24,15 +24,22 @@ from torchfcn.core.config import IMAGENET_BGR_MEAN
 from torchfcn.core.dtypes import float32_exact
 
 
-def demean_bgr(img: torch.Tensor) -> torch.Tensor:
+def demean_bgr(img: torch.Tensor, mesh=None) -> torch.Tensor:
     """(..., H, W, 3) BGR images -> float32 in [0, 1]: subtract the
     ImageNet BGR means, then min-max over each image.  A constant image
     maps to zeros (the denominator is at least float32's smallest normal)
-    where the reference would divide by zero."""
+    where the reference would divide by zero.  On a mesh that shards rows
+    (``torchfcn.core.mesh``) ``img`` is this rank's band of rows, and the
+    minimum and maximum are the whole frame's (reduced over the space
+    group, exactly)."""
     out = img.to(torch.float32) - torch.tensor(
         IMAGENET_BGR_MEAN, dtype=torch.float32, device=img.device)
     lo = out.amin(dim=(-3, -2, -1), keepdim=True)
     hi = out.amax(dim=(-3, -2, -1), keepdim=True)
+    if mesh is not None and mesh.space > 1:
+        import torch.distributed as dist
+        dist.all_reduce(lo, dist.ReduceOp.MIN, group=mesh.space_group)
+        dist.all_reduce(hi, dist.ReduceOp.MAX, group=mesh.space_group)
     return (out - lo) / torch.clamp(hi - lo,
                                     min=torch.finfo(torch.float32).tiny)
 

@@ -6,8 +6,8 @@ counterpart of ``tpufcn/ops/pallas/stem.py``.
                  -> LRN2 -> pool2 3x3/2 (ceil mode)
 
 Rounding follows the TPU kernel ``stem_tail_pallas``, not the XLA model:
-each conv multiplies bf16 operands, accumulates in float32, adds the float32
-bias, applies ReLU and rounds once to bf16; the LRNs are the bf16
+each conv multiplies bf16 operands, accumulates, adds the float32 bias,
+applies ReLU and rounds once to bf16; the LRNs are the bf16
 ``lrn_across_channels``.  With ``store_dtype=torch.float8_e5m2`` the LRN1,
 conv2_reduce, conv2 and LRN2 outputs are further rounded to e5m2, as the
 serving model stores them (``tpufcn/models/googlenet.py:186-200``).
@@ -35,29 +35,41 @@ def _store(x: torch.Tensor, store_dtype: Optional[torch.dtype]):
 
 def conv_relu_bf16(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                    stride: int = 1, pad: int = 0) -> torch.Tensor:
-    """NHWC conv of bf16 operands, float32 accumulation and bias, ReLU,
-    one rounding to bf16.  Products of bf16 values are exact in float32, so
-    a float32 conv of the bf16 values is this arithmetic (on a GPU only with
-    TF32 off)."""
-    y = F.conv2d(x.permute(0, 3, 1, 2).float(), w.to(torch.bfloat16).float(),
-                 b.float(), stride, pad)
+    """NHWC conv of bf16 operands and a float32 bias, ReLU, one rounding to
+    bf16.  The sums run in float64, where products of bf16 values and their
+    sums over a 3x3x64 window are exact, so the result is the exactly
+    rounded one, whatever order a device sums in.  A float32 sum's order
+    can flip a rounding by one bf16 ulp; with e5m2 storage such a flip in
+    one layer grows to two e5m2 steps two layers on, where the kernels
+    (float32 sums) agree with the exact sums."""
+    y = F.conv2d(x.permute(0, 3, 1, 2).double(),
+                 w.to(torch.bfloat16).double(), b.float().double(), stride,
+                 pad)
     return torch.relu(y).to(torch.bfloat16).permute(0, 2, 3, 1)
 
 
 def stem_tail(pool1_out: torch.Tensor, wr: torch.Tensor, br: torch.Tensor,
               w2: torch.Tensor, b2: torch.Tensor,
-              store_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+              store_dtype: Optional[torch.dtype] = None,
+              halo_top: int = 0, halo_bottom: int = 0) -> torch.Tensor:
     """LRN1 -> conv2_reduce -> conv2 -> LRN2 -> pool2 on (B, H, W, 64) NHWC;
     returns (B, Ho, Wo, 192) contiguous, Ho and Wo Caffe's ceil-mode pooled
     sizes, in ``store_dtype`` (bf16 when None).  conv2's zero padding pads
     the reduce conv's output, and pool2's window edges past the image max
-    against -inf."""
+    against -inf.
+
+    A row shard: the first ``halo_top`` and last ``halo_bottom`` input rows
+    belong to the shards above and below.  They are data (only rows outside
+    the input are conv2's zero padding); the pool's windows start at the
+    shard's own rows 0, 2, ... and Ho is half the shard's rows (an even
+    count)."""
+    rows = pool1_out.shape[1] - halo_top - halo_bottom
     x = pool1_out.to(torch.bfloat16)
     x = _store(lrn_across_channels(x), store_dtype)
     x = _store(conv_relu_bf16(x, wr, br), store_dtype)
     x = _store(conv_relu_bf16(x, w2, b2, pad=1), store_dtype)
     x = _store(lrn_across_channels(x), store_dtype)
-    y = max_pool_caffe(x, 3, 2)
+    y = max_pool_caffe(x[:, halo_top:], 3, 2)[:, :rows // 2]
     return y.to(store_dtype or torch.bfloat16).contiguous()
 
 

@@ -8,6 +8,16 @@
 PyTorch runs it eagerly; the stem (LRN, or the fused stem tail of the fp8
 serving preset) and groupRectangles steps are hand-written CUDA kernels on a
 CUDA device and their plain versions on the CPU.
+
+On a (data, space) mesh (``Detector(mesh=...)``, one process per rank,
+``torchfcn.core.mesh``) every rank is given the global frame batch and moves
+only its share to its device: its batch shard (``data``) and, with
+``space > 1``, its band of each frame's rows.  Each rank runs the forward on
+its share (row-sharded with halo exchange), the stride-16 heads are gathered
+within the space group, decode, top-K and groupRectangles run per data
+shard (every space rank of a shard repeats them, as the JAX package's
+shard_map does), and the data shards' results are gathered, so that every
+rank returns the global ``DetectionResult``.
 """
 
 from __future__ import annotations
@@ -22,10 +32,12 @@ from torchfcn.convert import resolve_weights
 from torchfcn.core.config import DetectorConfig
 from torchfcn.core.device import port_device
 from torchfcn.core.dtypes import DTypePolicy
+from torchfcn.core.mesh import (
+    DATA_AXIS, SPACE_AXIS, Mesh, check_space_rows, space_sharded)
 from torchfcn.models import build as build_model, get_spec
 from torchfcn.ops.grid_codec import decode_gridboxes
 from torchfcn.ops.group_rects import vote_boxes_batched
-from torchfcn.ops.image import preprocess_bgr, resize_bilinear
+from torchfcn.ops.image import demean_bgr, preprocess_bgr, resize_bilinear
 from torchfcn.serve.result import DetectionResult
 
 # select_candidates clamps rounded coords to what the reference's packed sort
@@ -130,6 +142,12 @@ class Detector:
     parameters, dtypes and device (a Trainer's live model, for the
     validators); nothing is built, cast or loaded then, and ``dtype``
     only picks the default policy's precision scope.
+    ``mesh``: a ``torchfcn.core.mesh.Mesh``; every rank builds the Detector
+    and calls it with the same global batch, a multiple of ``data``.  The
+    model runs on the mesh's device (``device`` is not read), with rank
+    0's parameters broadcast to every rank.  ``space > 1`` shards rows for
+    the GoogLeNet and VGG DetectNets (other families raise); the net's
+    rows must divide by space x 16.
     """
 
     def __init__(self,
@@ -142,15 +160,31 @@ class Detector:
                  device="cuda",
                  policy: Optional[DTypePolicy] = None,
                  weights: Optional[str] = None,
-                 model: Optional[nn.Module] = None):
+                 model: Optional[nn.Module] = None,
+                 mesh: Optional[Mesh] = None):
         self.spec = get_spec(model_name)
         if "coverage" not in self.spec.heads:
             raise ValueError(f"{model_name} has no detection heads; serve "
                              f"it with torchfcn.serve.segment.Segmenter")
         self.policy = serving_policy(dtype, policy)
+        if mesh is not None:
+            extra = {a: n for a, n in mesh.shape.items()
+                     if a not in (DATA_AXIS, SPACE_AXIS) and n > 1}
+            if extra:
+                raise ValueError(
+                    f"Detector(mesh=...) shards over '{DATA_AXIS}' and "
+                    f"'{SPACE_AXIS}' only; mesh has extra non-trivial axes "
+                    f"{extra} whose chips would run redundant replicas — "
+                    "pass a (data, space) mesh, e.g. "
+                    "make_mesh(MeshConfig(data=N, space=M))")
+            device = mesh.device
+        self.mesh = mesh
         self.model, self.device = model_and_device(
             model, model_name, dtype, rng_seed, model_kwargs, device,
             self.policy, weights)
+        if mesh is not None:
+            from torchfcn.parallel.distributed import shard_params_replicated
+            shard_params_replicated(self.model, mesh)
         grid = self.spec.grid
         if model_kwargs and "num_classes" in model_kwargs:
             grid = dataclasses.replace(
@@ -165,24 +199,78 @@ class Detector:
         c = self.grid.num_classes
         return c - 1 if self.spec.background_channel is not None else c
 
-    def _forward(self, frames: torch.Tensor, params: Optional[dict] = None):
+    def _forward(self, frames: torch.Tensor, params: Optional[dict] = None,
+                 banded: bool = False):
         """Preprocess + model forward -> (coverage, bboxes) NHWC grids, with
         the model's own parameters or ``params`` (a name -> tensor map of
-        every parameter and buffer, ``torch.func.functional_call``)."""
+        every parameter and buffer, ``torch.func.functional_call``).  On a
+        mesh ``frames`` are this rank's share (``_share``; ``banded``: its
+        rows alone) and the grids its data shard's, gathered within the
+        space group."""
         net_hw = (self.grid.im_height, self.grid.im_width)
-        x = preprocess(frames, self.spec.preprocessing, net_hw)
-        out = (self.model(x) if params is None else
-               torch.func.functional_call(self.model, params, (x,)))
-        return out["coverage"], out["bboxes"]
+        mesh = self.mesh
+        if banded:
+            x = demean_bgr(frames, mesh) \
+                if self.spec.preprocessing == "demean" else frames
+        else:
+            x = preprocess(frames, self.spec.preprocessing, net_hw)
+            if space_sharded(mesh):
+                x = x[:, self._rows(net_hw[0])]
+        kw = {} if mesh is None else {"mesh": mesh}
+        out = (self.model(x, **kw) if params is None else
+               torch.func.functional_call(self.model, params, (x,), kw))
+        coverage, bboxes = out["coverage"], out["bboxes"]
+        if space_sharded(mesh):
+            from torchfcn.parallel.distributed import all_gather_cat
+            coverage = all_gather_cat(coverage, mesh.space_group, dim=1)
+            bboxes = all_gather_cat(bboxes, mesh.space_group, dim=1)
+        return coverage, bboxes
+
+    def _rows(self, rows: int) -> slice:
+        r = rows // self.mesh.space
+        return slice(self.mesh.space_index * r,
+                     (self.mesh.space_index + 1) * r)
+
+    def _share(self, frames: torch.Tensor):
+        """(this rank's share of the global batch ``frames`` on its device,
+        whether it is a band of rows): the batch shard and, under row
+        sharding, its rows of frames at the net's size (frames of another
+        size move whole, to be resized first).  Raises on a batch the data
+        axis does not divide, and on rows that do not split."""
+        mesh = self.mesh
+        n = mesh.shape[DATA_AXIS]
+        if frames.shape[0] % n:
+            raise ValueError(
+                f"sharded serving needs batch size divisible by the mesh "
+                f"data axis ({n}); got {frames.shape[0]}")
+        b = frames.shape[0] // n
+        frames = frames[mesh.data_index * b:(mesh.data_index + 1) * b]
+        net_hw = (self.grid.im_height, self.grid.im_width)
+        banded = space_sharded(mesh) and tuple(frames.shape[1:3]) == net_hw
+        if space_sharded(mesh):
+            check_space_rows(net_hw[0], mesh,
+                             getattr(self.model, "row_stride", 1))
+        if banded:
+            frames = frames[:, self._rows(net_hw[0])]
+        return frames.to(self.device), banded
 
     def _pipeline(self, frames: torch.Tensor,
                   params: Optional[dict] = None) -> DetectionResult:
         if frames.dim() != 4 or frames.shape[-1] != 3:
             raise ValueError(f"frames must be (B, H, W, 3), got "
                              f"{tuple(frames.shape)}")
+        in_hw = tuple(frames.shape[1:3])
+        banded = False
+        if self.mesh is not None:
+            frames, banded = self._share(frames)
         with self.policy.precision():
-            coverage, bboxes = self._forward(frames, params)
-        return self._decode_nms(coverage, bboxes, tuple(frames.shape[1:3]))
+            coverage, bboxes = self._forward(frames, params, banded)
+        result = self._decode_nms(coverage, bboxes, in_hw)
+        if self.mesh is None:
+            return result
+        from torchfcn.parallel.distributed import all_gather_cat
+        return DetectionResult(*(all_gather_cat(t, self.mesh.data_group)
+                                 for t in result))
 
     def forward_fn(self):
         """``(fn, params)``: ``fn(params, frames) -> DetectionResult`` is the
@@ -197,9 +285,15 @@ class Detector:
 
         def fn(params: dict, frames: torch.Tensor) -> DetectionResult:
             with torch.no_grad():
-                return self._pipeline(
-                    torch.as_tensor(frames, device=self.device), params)
+                return self._pipeline(self._as_frames(frames), params)
         return fn, params
+
+    def _as_frames(self, frames) -> torch.Tensor:
+        """The frames as a tensor: on this Detector's device, or on a mesh
+        where they are (``_share`` moves each rank's share alone)."""
+        if self.mesh is not None:
+            return torch.as_tensor(frames)
+        return torch.as_tensor(frames, device=self.device)
 
     def _decode_nms(self, coverage: torch.Tensor, bboxes: torch.Tensor,
                     in_hw: Tuple[int, int]) -> DetectionResult:
@@ -239,8 +333,9 @@ class Detector:
     @torch.inference_mode()
     def __call__(self, frames) -> DetectionResult:
         """frames: (B, H, W, 3) BGR, uint8 or float in [0, 255], of any
-        size; boxes come back in the frames' coordinates."""
-        return self._pipeline(torch.as_tensor(frames, device=self.device))
+        size; boxes come back in the frames' coordinates.  On a mesh every
+        rank passes the same global batch and gets the global result."""
+        return self._pipeline(self._as_frames(frames))
 
     @classmethod
     def from_checkpoint(cls, snapshot_dir: str,

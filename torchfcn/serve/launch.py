@@ -41,6 +41,14 @@ class LaunchGraph:
         for _ in range(n):
             self.bus.spin_once()
 
+    def close(self) -> None:
+        """End the stream: flush the nodes and release the ranks that follow
+        a meshed detector node."""
+        for node in self.nodes.values():
+            end = getattr(node, "close", None) or getattr(node, "flush", None)
+            if end is not None:
+                end()
+
 
 def _dtype(params: Dict[str, Any]):
     import torch
@@ -56,16 +64,17 @@ def _make_detector(bus: TopicBus, params: Dict[str, Any],
     """A DetectorNode from the params tpufcn's launch files take, plus
     ``device`` ("cuda" by default, or "cpu") and ``dtype`` (a torch dtype
     name, "bfloat16" by default).  Without ``pretrained_weights`` the
-    weights are the seeded Caffe "xavier" init."""
+    weights are the seeded Caffe "xavier" init.  ``mesh`` ({"data": N,
+    "space": M}, ``tpufcn/serve/launch.py:103-117``) serves through
+    ``Detector(mesh=make_mesh(MeshConfig(N, M)))``: every rank of the
+    process group builds the graph (the group is joined from torchrun's
+    environment on ``device`` when it does not exist yet); rank 0's node
+    leads and the others follow (``DetectorNode.follow``)."""
     from torchfcn.core.config import DetectorConfig
     from torchfcn.models import get_spec
     from torchfcn.serve.detector import Detector
     from torchfcn.serve.stream import DetectorNode, TiledSegmenter
 
-    if params.get("mesh"):
-        raise NotImplementedError(
-            "the detector's mesh param (multi-GPU serving) is not ported "
-            "yet: ROADMAP Queue 1, multi-GPU and the mesh param")
     if params.get("overlay_topic"):
         from torchfcn.serve.stream import OVERLAY_MISSING
         raise NotImplementedError(OVERLAY_MISSING)
@@ -104,12 +113,21 @@ def _make_detector(bus: TopicBus, params: Dict[str, Any],
                                stride=params.get("tile_stride", 1),
                                dtype=dtype, device=device)
     else:
+        mesh = None
+        if params.get("mesh"):
+            from torchfcn.core.config import MeshConfig
+            from torchfcn.core.mesh import make_mesh
+            from torchfcn.parallel.distributed import initialize_distributed
+            m = params["mesh"]
+            initialize_distributed(device=device)
+            mesh = make_mesh(MeshConfig(data=int(m.get("data", 1)),
+                                        space=int(m.get("space", 1))))
         # a .caffemodel file or a Trainer snapshot directory
         # (torchfcn.convert.resolve_weights)
         detector = Detector(model_name, config=cfg, dtype=dtype,
                             max_candidates=cfg.candidate_capacity,
                             model_kwargs=mkw, device=device,
-                            weights=weights or None)
+                            weights=weights or None, mesh=mesh)
     # label manifest -> class display names; like the reference, a missing
     # file falls back to generated names
     names = None

@@ -146,6 +146,14 @@ class DetectorNode:
     frame arrives and from a bus spin hook, so a silent stream flushes too.
     ``names``: class display names from a label manifest.  The overlay
     topic is not ported (it raises).
+
+    A ``detector`` on a mesh of several ranks (``Detector(mesh=...)``, the
+    launch param ``mesh``): rank 0 leads, subscribing to the bus and
+    deciding each dispatch (micro-batch full, staleness deadline, flush) as
+    above; before each Detector call it broadcasts the batch to the other
+    ranks, which do not subscribe and run ``follow()`` instead, calling the
+    Detector with the same batch until the leader's ``close()``.  A rank's
+    own clock and bus thus never decide a collective call.
     """
 
     def __init__(self,
@@ -171,6 +179,10 @@ class DetectorNode:
             from torchfcn.serve.detector import Detector
             detector = Detector()
         self.detector = detector
+        mesh = getattr(detector, "mesh", None)
+        self._mesh = mesh if mesh is not None and mesh.size > 1 else None
+        # a rank of a mesh other than rank 0 follows the leader's batches
+        self.following = self._mesh is not None and self._mesh.rank != 0
         self.tiled = tiled
         self.rects_topic = rects_topic
         self.pmap_topic = pmap_topic
@@ -186,6 +198,8 @@ class DetectorNode:
         # buffer up to a full micro-batch in the subscription queue: with a
         # drop-oldest queue of 1, frames published faster than spin_once
         # would vanish before batching
+        if self.following:
+            return
         bus.subscribe(image_topic, self._callback,
                       queue_size=self.micro_batch)
         if self.flush_after_ms is not None and self.micro_batch > 1:
@@ -226,7 +240,7 @@ class DetectorNode:
             t0 = time.monotonic()
             # to_lists() copies the results to the host: the clock stops
             # after the card has finished
-            dets = self.detector(frame[None]).to_lists()[0]
+            dets = self._detect(frame[None]).to_lists()[0]
             self._publish_boxes(frame, dets, msg.stamp)
             self.latencies_ms.append((time.monotonic() - t0) * 1e3)
         self.processed += 1
@@ -279,7 +293,7 @@ class DetectorNode:
                     [stack, np.repeat(stack[-1:], self.micro_batch - n,
                                       axis=0)])
             try:
-                lists = self.detector(stack).to_lists()
+                lists = self._detect(stack).to_lists()
             except Exception:
                 # a failed dispatch must not eat the buffered frames: put
                 # them back so that a later dispatch or flush retries
@@ -297,6 +311,54 @@ class DetectorNode:
         """Dispatch a buffered partial micro-batch (call at stream end)."""
         if self._pending:
             self._dispatch()
+
+    # --- a mesh: rank 0 leads, the other ranks follow ---
+    _DTYPES = (torch.uint8, torch.float32)     # the frame types sent
+
+    def _announce(self, frames: Optional[np.ndarray]) -> None:
+        """Rank 0: the next batch (None: the end) to every other rank."""
+        import torch.distributed as dist
+        dev = self._mesh.device
+        head = torch.zeros(5, dtype=torch.int64)    # type code, B, H, W, C
+        if frames is not None:
+            frames = torch.as_tensor(frames)
+            head[0] = self._DTYPES.index(frames.dtype) + 1
+            head[1:] = torch.tensor(frames.shape)
+        dist.broadcast(head.to(dev), src=0, group=self._mesh.group)
+        if frames is not None:
+            dist.broadcast(frames.to(dev), src=0, group=self._mesh.group)
+
+    def _detect(self, frames: np.ndarray):
+        if self._mesh is not None:
+            self._announce(np.ascontiguousarray(frames))
+        return self.detector(frames)
+
+    def follow(self) -> int:
+        """A following rank: run the Detector on each batch rank 0 sends
+        until its ``close()``; returns the frames run."""
+        import torch.distributed as dist
+        dev, group = self._mesh.device, self._mesh.group
+        frames_run = 0
+        while True:
+            head = torch.zeros(5, dtype=torch.int64, device=dev)
+            dist.broadcast(head, src=0, group=group)
+            code, shape = int(head[0]), [int(v) for v in head[1:]]
+            if code == 0:
+                return frames_run
+            frames = torch.empty(shape, dtype=self._DTYPES[code - 1],
+                                 device=dev)
+            dist.broadcast(frames, src=0, group=group)
+            self.detector(frames)
+            frames_run += shape[0]
+
+    def close(self) -> None:
+        """End of the stream: flush; rank 0 of a mesh then releases the
+        following ranks."""
+        if self.following:
+            return
+        self.flush()
+        if self._mesh is not None:
+            self._announce(None)
 
 
 def replay(node: DetectorNode, frames: Sequence[np.ndarray],

@@ -12,6 +12,18 @@ The model runs under the state's ``DTypePolicy``: float32 parameters and
 optimizer state, convolutions in the compute dtype, and TF32 off under
 ``parity()``.  The LRN kernels' custom ops carry the backward through the
 GoogLeNet stem.
+
+On a (data, space) mesh (``torchfcn.core.mesh``, one process per rank;
+``tpufcn/train/step.py:82-88,182-228``) each rank holds a replica of the
+model and its share of the batch: its batch shard and, with ``space > 1``,
+its band of the image and seg rows.  The losses divide by the local batch
+(Caffe's normalisations), so after the local backward the gradients are
+summed over the mesh and divided by ``data``: the gradient of the global
+batch's loss, once per update (after ``iter_size`` micro-batches).  The
+metrics are reduced the same way (counts are summed).  Dropout draws the
+global batch's mask on every rank (``models.layers.dropout``), so an N-rank
+step equals the one-device step.  Unequal local batches are refused
+(``core.mesh.local_batch``).
 """
 
 from __future__ import annotations
@@ -26,7 +38,8 @@ import torch.nn as nn
 from torchfcn.core.config import TrainConfig
 from torchfcn.core.device import port_device
 from torchfcn.core.dtypes import DTypePolicy
-from torchfcn.ops.grid_codec import encode_grid_labels_batch
+from torchfcn.core.mesh import Mesh, space_sharded
+from torchfcn.ops.grid_codec import GridLabels, encode_grid_labels_batch
 from torchfcn.ops.image import demean_bgr
 from torchfcn.train.losses import detectnet_loss
 
@@ -106,25 +119,32 @@ def apply_update(optimizer: torch.optim.Optimizer,
 
 def make_loss_fn(cfg: TrainConfig, with_seg: bool = False,
                  preprocessing: str = "demean",
-                 label_offset: int = 0) -> Callable:
+                 label_offset: int = 0,
+                 mesh: Optional[Mesh] = None) -> Callable:
     """(model, batch, generator) -> (total loss, metrics).
 
     ``label_offset=1`` for background-channel families (fcn8s_bbox): the
     0-based object ids shift to 1..C-1 before grid encoding, so that object
     j's coverage and bbox supervision lands on channel j + 1, the channel
     the seg softmax supervises as class j + 1 (the reference's one-based
-    manifest labels)."""
+    manifest labels).  On a mesh the batch is this rank's share and the
+    loss its part: the grid labels of its band of grid rows."""
     grid = cfg.grid
+    kw = {} if mesh is None else {"mesh": mesh}
 
     def loss_fn(model: nn.Module, batch: Dict[str, torch.Tensor],
                 generator: torch.Generator):
         img = batch["image"]
-        img = demean_bgr(img) if preprocessing == "demean" \
+        img = demean_bgr(img, mesh) if preprocessing == "demean" \
             else img.to(torch.float32)
-        out = model(img, generator=generator)
+        out = model(img, generator=generator, **kw)
         labels = encode_grid_labels_batch(
             batch["rects"], batch["labels"] + label_offset, batch["valid"],
             grid)
+        if space_sharded(mesh):
+            r = grid.grid_h // mesh.space
+            band = slice(mesh.space_index * r, (mesh.space_index + 1) * r)
+            labels = GridLabels(*(t[:, band] for t in labels))
         if with_seg and "seg" not in batch:
             raise ValueError(
                 "with_seg=True but the batch carries no 'seg' masks; train "
@@ -171,11 +191,37 @@ def make_grads_fn(loss_fn: Callable, iter_size: int = 1) -> Callable:
     return grads_fn
 
 
-def make_train_step(cfg: TrainConfig, mesh=None, with_seg: bool = False,
+def reduce_over_mesh(model: nn.Module, metrics: Metrics,
+                     mesh: Mesh) -> Metrics:
+    """The gradients in ``.grad`` and the metrics, summed over the mesh and
+    divided by ``data`` (counts, the keys ending in "_px", only summed): one
+    all-reduce per dtype of the gradients, one for the metrics."""
+    import torch.distributed as dist
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    for dtype in sorted({g.dtype for g in grads}, key=str):
+        same = [g for g in grads if g.dtype == dtype]
+        flat = torch.cat([g.reshape(-1) for g in same])
+        dist.all_reduce(flat, group=mesh.group)
+        flat /= mesh.data
+        offset = 0
+        for g in same:
+            g.copy_(flat[offset:offset + g.numel()].view_as(g))
+            offset += g.numel()
+    keys = sorted(metrics)
+    vals = torch.stack([metrics[k].float() for k in keys])
+    dist.all_reduce(vals, group=mesh.group)
+    return {k: v if k.endswith("_px") else v / mesh.data
+            for k, v in zip(keys, vals)}
+
+
+def make_train_step(cfg: TrainConfig, mesh: Optional[Mesh] = None,
+                    with_seg: bool = False,
                     preprocessing: str = "demean",
                     label_offset: int = 0) -> Callable:
     """The step: (state, batch) -> (state, metrics), updating ``state`` and
-    its model in place.  ``mesh`` must be None.
+    its model in place.  On a ``mesh`` the batch is this rank's share
+    (``torchfcn.parallel.shard_batch``) and the gradients and metrics are
+    reduced over the mesh before the update (``reduce_over_mesh``).
 
     batch (tensors on the model's device):
       image: (B, H, W, 3) uint8 or float raw BGR;
@@ -185,12 +231,8 @@ def make_train_step(cfg: TrainConfig, mesh=None, with_seg: bool = False,
     With ``cfg.iter_size > 1`` every leaf has a leading (iter_size, ...)
     micro-batch axis (``make_grads_fn``).
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "data-parallel training over a mesh is not ported yet; the port "
-            "trains on one device")
     grads_fn = make_grads_fn(
-        make_loss_fn(cfg, with_seg, preprocessing, label_offset),
+        make_loss_fn(cfg, with_seg, preprocessing, label_offset, mesh),
         cfg.iter_size)
     schedule = make_schedule(cfg)
 
@@ -198,6 +240,8 @@ def make_train_step(cfg: TrainConfig, mesh=None, with_seg: bool = False,
         with state.policy.precision():
             state.model.train()
             _, metrics = grads_fn(state.model, batch, state.generator)
+            if mesh is not None:
+                metrics = reduce_over_mesh(state.model, metrics, mesh)
             apply_update(state.optimizer, schedule, state.step)
         state.step += 1
         return state, metrics
@@ -232,8 +276,9 @@ def make_multi_train_step(cfg: TrainConfig, mesh=None,
 
 def stack_batches(batches):
     """[{k: (B, ...)}] -> {k: (N, B, ...)}: tensors stack on their device,
-    numpy arrays on the host."""
-    out = {}
+    numpy arrays on the host; the dict type of the first batch (a
+    ``LocalBatch`` stays one)."""
+    out = type(batches[0])()
     for k in batches[0]:
         vals = [b[k] for b in batches]
         out[k] = (torch.stack(vals) if isinstance(vals[0], torch.Tensor)

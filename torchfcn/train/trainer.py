@@ -7,6 +7,12 @@ state; the last 5 are kept.  ``fit`` resumes from the latest, saves
 periodically and at the end, and on SIGTERM/SIGINT saves and returns.  The
 console display follows the Caffe solver's (``display: 20``, a loss
 averaged over the last 20 iterations).
+
+On a (data, space) mesh (``tpufcn/train/trainer.py:142-174,251-270``) every
+rank runs a Trainer over the same batch source: ``put`` keeps the rank's
+share of each global batch, the step reduces the gradients over the mesh,
+rank 0 writes the snapshots, the display and ``BEST.json``, and the ranks
+agree on a stop and on the validator's scores (rank 0's, broadcast).
 """
 
 from __future__ import annotations
@@ -24,7 +30,10 @@ import torch
 from torchfcn.core.config import TrainConfig
 from torchfcn.core.device import port_device
 from torchfcn.core.dtypes import DTypePolicy
+from torchfcn.core.mesh import Mesh, make_mesh
 from torchfcn.models import build as build_model, get_spec
+from torchfcn.parallel.distributed import (
+    LocalBatch, shard_batch, shard_params_replicated)
 from torchfcn.train.step import (
     TrainState, init_state, make_train_step, stack_batches)
 
@@ -107,6 +116,10 @@ class MetricLogger:
             for k, v in vals.items()))
 
 
+def _silent(_: str) -> None:
+    """The display of a rank that is not rank 0."""
+
+
 class Trainer:
     """End-to-end training over a batch iterator on one device: host
     batches, or batches on the device such as
@@ -119,6 +132,10 @@ class Trainer:
     ``validator`` is a callable taking the model (in eval mode) and
     returning ``{metric: float}``; it runs every ``cfg.eval_every`` steps,
     and the best-scoring snapshot is kept in ``<snapshot_dir>/best``.
+    ``mesh`` (a ``torchfcn.core.mesh.Mesh``), or ``cfg.mesh`` naming more
+    than one device (then ``make_mesh(cfg.mesh)`` over the initialised
+    process group), trains data-parallel and row-sharded; the device is
+    then the mesh's.
     """
 
     def __init__(self, cfg: TrainConfig,
@@ -130,6 +147,11 @@ class Trainer:
                  log_sink: Callable[[str], None] = print,
                  policy: Optional[DTypePolicy] = None,
                  device="cuda"):
+        if mesh is None and cfg.mesh.num_devices > 1:
+            mesh = make_mesh(cfg.mesh)
+        self.mesh: Optional[Mesh] = mesh
+        # rank 0 writes the snapshots and the display
+        self.writer = mesh is None or mesh.rank == 0
         self.cfg = cfg
         self.model = model if model is not None else build_model(cfg.model)
         if getattr(self.model, "store_dtype", None) is not None:
@@ -139,11 +161,8 @@ class Trainer:
                 "serving-only mode (the JAX package refuses to train it, and "
                 "the stem-tail kernel has no backward); train the exact "
                 "model, whose snapshots load into the serving preset")
-        if mesh is not None or cfg.mesh.num_devices > 1:
-            raise NotImplementedError(
-                "data-parallel training over several devices is not ported "
-                "yet; the port trains on one device")
-        self.device = port_device(device, cfg.model)
+        self.device = mesh.device if mesh is not None \
+            else port_device(device, cfg.model)
         self.policy = policy or DTypePolicy()
         self.with_seg = with_seg
         try:
@@ -157,10 +176,11 @@ class Trainer:
             raise ValueError(
                 f"background_channel={bg}: only channel 0 is supported as "
                 "the background (the label-offset convention)")
-        self.step_fn = make_train_step(cfg, with_seg=with_seg,
+        self.step_fn = make_train_step(cfg, mesh, with_seg=with_seg,
                                        preprocessing=preprocessing,
                                        label_offset=0 if bg is None else 1)
-        self.logger = MetricLogger(cfg.log_every, sink=log_sink)
+        self.logger = MetricLogger(
+            cfg.log_every, sink=log_sink if self.writer else _silent)
         self.ckpt_dir = os.path.abspath(cfg.snapshot_dir)
         self.validator = validator
         self.val_metric = val_metric
@@ -181,7 +201,8 @@ class Trainer:
             os.remove(os.path.join(directory, f"{old}.pt"))
 
     def save(self, state: TrainState) -> None:
-        self._save_to(self.ckpt_dir, state, KEEP_SNAPSHOTS)
+        if self.writer:
+            self._save_to(self.ckpt_dir, state, KEEP_SNAPSHOTS)
 
     def restore_latest(self, state: TrainState) -> TrainState:
         """``state`` with the latest snapshot's step, parameters, optimizer
@@ -201,29 +222,49 @@ class Trainer:
             state.model.train()
         metrics = {k: int(v) if isinstance(v, (int, np.integer))
                    else float(v) for k, v in scores.items()}
+        if self.mesh is not None:
+            # every rank scored its replica; rank 0's scores decide "best"
+            import torch.distributed as dist
+            box = [metrics]
+            dist.broadcast_object_list(box, src=0, group=self.mesh.group,
+                                       device=self.mesh.device)
+            metrics = box[0]
         self.logger.log_scalars(
             step, {f"val_{k}": v for k, v in metrics.items()})
         key = self.val_metric or next(iter(metrics))
         score = float(metrics[key])
         if self.best is None or score > self.best["score"]:
             self.best = {"step": int(step), "score": score, "metric": key}
-            self._save_to(os.path.join(self.ckpt_dir, "best"), state, 1)
-            with open(os.path.join(self.ckpt_dir, "BEST.json"), "w") as f:
-                json.dump({**self.best, "metrics": metrics}, f)
+            if self.writer:
+                self._save_to(os.path.join(self.ckpt_dir, "best"), state, 1)
+                with open(os.path.join(self.ckpt_dir, "BEST.json"),
+                          "w") as f:
+                    json.dump({**self.best, "metrics": metrics}, f)
 
     def init_state(self) -> TrainState:
-        return init_state(self.model, self.cfg, rng_seed=self.cfg.seed,
-                          device=self.device, policy=self.policy)
+        """The seeded state; on a mesh every rank then holds rank 0's
+        parameters."""
+        state = init_state(self.model, self.cfg, rng_seed=self.cfg.seed,
+                           device=self.device, policy=self.policy)
+        if self.mesh is not None:
+            shard_params_replicated(state.model, self.mesh)
+        return state
 
-    def put(self, batch: Dict) -> Dict[str, torch.Tensor]:
+    def put(self, batch: Dict, stacked: bool = False
+            ) -> Dict[str, torch.Tensor]:
         """Batch -> tensors on the device (images stay uint8 until the
         step's preprocessing, so transfers stay small); "seg" only when
         training the seg head.  Tensors already on the device (the device
         compositor's, a ``DeviceBatchCache``'s) are taken as they are, not
-        copied."""
-        return {k: torch.as_tensor(v).to(self.device, non_blocking=True)
-                for k, v in batch.items()
-                if k != "seg" or self.with_seg}
+        copied.  On a mesh only this rank's share moves
+        (``torchfcn.parallel.shard_batch``; a ``LocalBatch`` is one
+        already); ``stacked`` batches keep their leading steps or
+        micro-batch axis whole.  The result is a ``LocalBatch``: putting it
+        again moves and shards nothing."""
+        return LocalBatch(
+            {k: torch.as_tensor(v).to(self.device, non_blocking=True)
+             for k, v in shard_batch(batch, self.mesh, stacked).items()
+             if k != "seg" or self.with_seg})
 
     def fit(self, batches: Iterator[Dict[str, np.ndarray]],
             max_iter: Optional[int] = None,
@@ -252,6 +293,16 @@ class Trainer:
             for sig, handler in previous.items():
                 signal.signal(sig, handler)
 
+    def _agree(self, flag: bool) -> bool:
+        """Whether any rank of the mesh raised ``flag`` (a signal reaches
+        one process): every rank then stops at the same step."""
+        if self.mesh is None:
+            return flag
+        import torch.distributed as dist
+        t = torch.tensor([float(flag)], device=self.device)
+        dist.all_reduce(t, dist.ReduceOp.MAX, group=self.mesh.group)
+        return bool(t.item())
+
     def _next_group(self, it, n: int) -> Optional[list]:
         """The next ``n`` host batches, or None when the source runs out
         first (with a note if it ran out inside the group)."""
@@ -277,10 +328,12 @@ class Trainer:
             group = self._next_group(it, n)
             if group is None:
                 break
-            batch = self.put(stack_batches(group) if n > 1 else group[0])
+            batch = self.put(stack_batches(group), stacked=True) if n > 1 \
+                else self.put(group[0])
             state, metrics = self.step_fn(state, batch)
+            shards = 1 if self.mesh is None else self.mesh.data
             self.logger.update(state.step, metrics,
-                               n * batch["image"].shape[-4])
+                               n * shards * batch["image"].shape[-4])
             if cfg.snapshot_every and state.step % cfg.snapshot_every == 0:
                 self.save(state)
                 last_snap = state.step
@@ -288,7 +341,8 @@ class Trainer:
                     state.step % cfg.eval_every == 0:
                 self._run_validation(state, state.step)
                 last_eval = state.step
-            if stop:
+            if self._agree(bool(stop)):
+                stop = stop or [signal.SIGTERM]
                 self.save(state)
                 last_snap = state.step
                 self.logger.sink(f"signal {stop[0]}: snapshot saved at step "
@@ -300,4 +354,8 @@ class Trainer:
         if self.validator is not None and state.step > start \
                 and last_eval != state.step:
             self._run_validation(state, state.step)
+        if self.mesh is not None:
+            # no rank returns before rank 0's last snapshot is written
+            import torch.distributed as dist
+            dist.barrier(group=self.mesh.group)
         return state
