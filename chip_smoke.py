@@ -162,27 +162,47 @@ plain versions are full float32.
    and held against its plain version on the trained model's first
    chunk, the stem tail once an e5m2 scoring chunk; and the gate step's
    device busy time with the LRN ops' plain backward's share;
-12. mesh: the (data, space) mesh on torch.distributed.  The stem-tail
-   kernel on row shards (halo rows above and below read as data) against
-   its plain version with the same arguments at the row-sharded serving
-   path's three shard shapes, to the stem tail's bounds, timed at rank 0's.
-   NCCL at world size 1 on a 1 x 1 mesh, its collectives called: a
-   parity() train step of googlenet_detectnet at B = 16, 448x448, dropout
-   on, equal to the mesh=None step within the parity step's limits, and
-   the flagship Detector (bf16, K = 256) equal to mesh=None's.  Two
-   processes sharing the card over gloo (NCCL refuses one GPU twice): a
-   (data=2) train step against the one-process step (gradients by the
-   parity step's card-vs-CPU median rule: a batch shard's activations may
-   round elsewhere), and the (space=2) bf16 and e5m2 Detectors and the
-   (data=2) Detector, each on 8 448x448 frames: every rank returns the same
-   global result; against the one process (mesh=None, in rank 0's process,
-   the 8 frames in two calls of 4: each rank's problem size, by which
-   cuDNN picks its bf16 algorithms) the heads within MESH_HEAD_TOL, the
-   result equal, integers and confidences exactly, to decode + NMS of its
-   own heads, and to the one process's result where the heads are
-   bit-equal (else the share of equal entries is printed); the share of
-   entries equal to one call of all 8 frames is printed (a box near a
-   rounding edge moves by one when the convs round elsewhere).  Prints the halo
+12. mesh: the (data, space) mesh on torch.distributed. The stem-tail kernel
+   on row shards (halo rows above and below read as data) against its plain
+   version with the same arguments at the row-sharded serving path's three
+   shard shapes, to the stem tail's bounds, timed at rank 0's. NCCL at
+   world size 1 on a 1 x 1 mesh, its collectives called: a parity() train
+   step of googlenet_detectnet at B = 16, 448x448, dropout on, equal to the
+   mesh=None step within the parity step's limits, and the flagship
+   Detector (bf16, K = 256) equal to mesh=None's. Two processes sharing the
+   card over gloo (NCCL refuses one GPU twice): a (data=2) train step
+   against the one-process step (gradients by the parity step's card-vs-CPU
+   median rule: a batch shard's activations may round elsewhere), and the
+   (space=2) bf16 and e5m2 Detectors and the (data=2) Detector, each on 8
+   448x448 frames: every rank returns the same global result; against the
+   one process (mesh=None, in rank 0's process, the 8 frames in two calls
+   of 4: each rank's problem size, by which cuDNN picks its bf16
+   algorithms) the heads within MESH_HEAD_TOL, the result equal, integers
+   and confidences exactly, to decode + NMS of its own heads, and to the
+   one process's result where the heads are bit-equal (else the share of
+   equal entries is printed); the share of entries equal to one call of all
+   8 frames is printed (a box near a rounding edge moves by one when the
+   convs round elsewhere). In the same two processes, every other family
+   row-sharded over (space=2), bf16, 8 frames, K = 256 (MESH_FAMILIES):
+   fcn8s_bbox and its e5m2 preset at 288x288 (bands 160 + 128 rows),
+   vgg_pyramid_detectnet and resnet_fpn_detectnet at 448x448,
+   googlenet_detectnet and its preset on 432 rows (bands 224 + 208, the LRN
+   kernels and the stem tail on a band that is not half the frame): every
+   rank the same result, the heads within MESH_HEAD_TOL of the one
+   process's (two calls of 4), the result equal to decode + NMS on the CPU
+   of the meshed heads and, where the heads are bit-equal, to the one
+   process's; the float32 heads (TF32 off) of each family but the presets
+   within 1e-5 of the one process's; every kernel launched on every rank
+   and held against its plain version on its recorded inputs; the halo,
+   all-reduce and gather shares of each call. The float32 parity steps (B =
+   4, dropout on) of resnet_fpn_detectnet at 448x448 and fcn8s_bbox at
+   288x288 with its seg loss, row-sharded, against the one process
+   (MESH_SPACE_GRAD_MEDIAN), each with a control (each band's GroupNorm
+   statistics its own; zero-filled halos) that must fail. And in this
+   process: whether cuDNN's deterministic=True, benchmark=False makes one
+   googlenet_detectnet call of 8 frames bit-equal to two of 4, and its
+   device-time cost; and the device time of resnet_fpn_detectnet's bf16
+   forward with the port's GroupNorm against F.group_norm. Prints the halo
    exchange's share of a row-sharded Detector call, and the step time of
    the one process, of the NCCL 1 x 1 mesh and of 2 gloo ranks, beside the
    card's name and power limit.
@@ -3115,6 +3135,46 @@ MESH_STEM_SHARDS = ((58, 0, 2), (57, 1, 0), (31, 1, 2))
 # algorithms; a halo zero-filled between the shards must read more (the
 # control in phase_mesh)
 MESH_HEAD_TOL = 1e-2
+# the families row-sharded over (space=2) in the gloo processes, each a
+# Detector (bf16, K = 256) on BATCH frames: (key, zoo name, frame rows x
+# columns); fcn8s_bbox's 288 rows split 160 + 128 (5 + 4 pool5 rows), 432
+# rows 224 + 208 (14 + 13 stride-16 rows), 448 rows 224 + 224
+MESH_FAMILIES = (
+    ("fcn8s_bf16", "fcn8s_bbox", (288, 288)),
+    ("fcn8s_e5m2", "fcn8s_bbox_serving", (288, 288)),
+    ("pyramid_bf16", "vgg_pyramid_detectnet", (NET, NET)),
+    ("resnet_bf16", "resnet_fpn_detectnet", (NET, NET)),
+    ("googlenet432_bf16", "googlenet_detectnet", (432, NET)),
+    ("googlenet432_e5m2", "googlenet_detectnet_serving", (432, NET)),
+)
+# the kernels each of those runs must launch on every rank
+MESH_FAMILY_KERNELS = {
+    "googlenet432_bf16": ("lrn", "lrn_maxpool", "group_rects"),
+    "googlenet432_e5m2": ("stem_tail", "group_rects")}
+# the float32 parity() steps row-sharded over (space=2), B = 4, dropout on:
+# name -> (net, grid stride, classes, preprocessing, with seg, label offset)
+MESH_PARITY_FAMILIES = {
+    "resnet_fpn_detectnet": (NET, 16, 4, "shift127", False, 0),
+    "fcn8s_bbox": (288, 8, 11, "demean", True, 1),
+}
+MESH_PARITY_B = 4
+# each float32 head (TF32 off) of a row-sharded family against the one
+# process's, within this share of its largest magnitude: a band's convs
+# sum in other orders than the frame's
+MESH_F32_HEAD_TOL = 1e-5
+# calls timed for the collectives' share of a row-sharded Detector call
+MESH_COLLECTIVE_REPS = 10
+# the row-sharded parity steps against the one process: check_mesh_step's
+# routed rule, the median over weight tensors of the median entry's |diff|
+# over the tensor's scale, within this.  A band's convs run on other
+# shapes than the frame's, for which cuDNN picks float32 algorithms that
+# sum in other orders (fcn8s_bbox read 7.7e-8, max 1.5e-3 where a max pool
+# routes a near-tie apart; NVIDIA H100 80GB HBM3, 700.00 W), and the
+# updated parameters are counted on the entries the gradients resolve
+# (check_mesh_step's ``resolved``: on all entries conv4_3 of fcn8s_bbox
+# read 0.881); each step's control (mesh_fault_step) must fail
+# check_mesh_step
+MESH_SPACE_GRAD_MEDIAN = 1e-6
 # the wrappers whose first call in a meshed Detector call is recorded and
 # held against its plain version (mesh_against_plain)
 MESH_RECORDED = (("layers", "lrn_cuda"), ("layers", "lrn_maxpool_cuda"),
@@ -3129,22 +3189,27 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def mesh_train_step(mesh, batch, dev, timed: int = 0) -> dict:
-    """One parity() step of googlenet_detectnet at 448x448 from the seeded
-    weights on this rank's share of ``batch`` (the whole batch without a
-    mesh), dropout on: the loss, the gradients and the parameters after it
-    (on the host), and with ``timed`` the median host-clock time of that
-    many further steps, each ending in a synchronize."""
+def mesh_train_step(mesh, batch, dev, timed: int = 0,
+                    name: str = "googlenet_detectnet") -> dict:
+    """One parity() step of ``name`` (googlenet_detectnet at 448x448, or
+    one of MESH_PARITY_FAMILIES) from the seeded weights on this rank's
+    share of ``batch`` (the whole batch without a mesh), dropout on: the
+    loss, the gradients and the parameters after it (on the host), and
+    with ``timed`` the median host-clock time of that many further steps,
+    each ending in a synchronize."""
     from torchfcn.core.config import GridConfig, TrainConfig
     from torchfcn.core.dtypes import DTypePolicy
     from torchfcn.models import build as build_model
     from torchfcn.parallel.distributed import shard_batch
     from torchfcn.train.step import init_state, make_train_step
-    cfg = TrainConfig(grid=GridConfig(NET, NET, 16, 4),
-                      model="googlenet_detectnet")
-    state = init_state(build_model(cfg.model), cfg, rng_seed=SEED,
-                       device=dev, policy=DTypePolicy.parity())
-    step = make_train_step(cfg, mesh, preprocessing="shift127")
+    net, stride, classes, pre, with_seg, offset = MESH_PARITY_FAMILIES.get(
+        name, (NET, 16, 4, "shift127", False, 0))
+    cfg = TrainConfig(grid=GridConfig(net, net, stride, classes), model=name)
+    state = init_state(build_model(name, num_classes=classes), cfg,
+                       rng_seed=SEED, device=dev,
+                       policy=DTypePolicy.parity())
+    step = make_train_step(cfg, mesh, with_seg=with_seg, preprocessing=pre,
+                           label_offset=offset)
     local = {k: torch.as_tensor(v).to(dev)
              for k, v in shard_batch(batch, mesh).items()}
     state, metrics = step(state, local)
@@ -3165,8 +3230,9 @@ def mesh_train_step(mesh, batch, dev, timed: int = 0) -> dict:
     return out
 
 
-def check_mesh_step(got: dict, want: dict, what: str,
-                    routed: bool) -> dict:
+def check_mesh_step(got: dict, want: dict, what: str, routed: bool,
+                    median_limit: float = None,
+                    resolved: bool = False) -> dict:
     """A meshed step against the one-process step, to the parity step's
     limits (phase 9): the losses within PARITY_LOSS_RTOL; every gradient
     within PARITY_CARD_GRAD_RTOL of its tensor's scale where both ran the
@@ -3175,7 +3241,15 @@ def check_mesh_step(got: dict, want: dict, what: str,
     scale within PARITY_CPU_GRAD_MEDIAN (a batch shard's activations may
     round elsewhere, and a max pool then routes a near-tie apart); the
     updated parameters, at least PARITY_PARAM_SHARE of each tensor within
-    PARITY_PARAM_LR_FRACTION * lr."""
+    PARITY_PARAM_LR_FRACTION * lr.  ``median_limit`` replaces
+    PARITY_CPU_GRAD_MEDIAN (MESH_SPACE_GRAD_MEDIAN for row-sharded
+    steps).  ``resolved``: the updated parameters' share counts only the
+    entries whose gradient exceeds its difference between the two steps,
+    whose signs, and so Adam's first move, the steps must agree on (a max
+    pool that routes a near-tie apart moves every gradient of the conv
+    below it by one position's share, and flips the sign of its smallest
+    entries)."""
+    median_limit = median_limit or PARITY_CPU_GRAD_MEDIAN
     if abs(got["loss"] - want["loss"]) > PARITY_LOSS_RTOL * abs(want["loss"]):
         raise AssertionError(f"{what}: loss {got['loss']} vs {want['loss']}")
     worst, medians = 0.0, []
@@ -3187,24 +3261,50 @@ def check_mesh_step(got: dict, want: dict, what: str,
             medians.append(float((g - w).abs().median()) / scale)
     median = statistics.median(medians)
     if (not routed and worst > PARITY_CARD_GRAD_RTOL) or \
-            (routed and median > PARITY_CPU_GRAD_MEDIAN):
+            (routed and median > median_limit):
         raise AssertionError(f"{what}: gradients max {worst:.3g}, median "
                              f"{median:.3g} of scale")
-    share = min(float(((got["params"][k] - w).abs()
-                       <= PARITY_PARAM_LR_FRACTION * want["lr"])
-                      .float().mean())
-                for k, w in want["params"].items())
+    shares, sure = [], []
+    for k, w in want["params"].items():
+        within = (got["params"][k] - w).abs() <= \
+            PARITY_PARAM_LR_FRACTION * want["lr"]
+        if resolved:
+            g = want["grads"][k]
+            keep = g.abs() > (got["grads"][k] - g).abs()
+            within = within[keep]
+            sure.append(float(keep.float().mean()))
+        shares.append((float(within.float().mean()) if within.numel()
+                       else 1.0, k))
+    share, name = min(shares)
     if share < PARITY_PARAM_SHARE:
-        raise AssertionError(f"{what}: updated parameters {share:.4f} "
-                             f"within the limit")
-    return {"loss": got["loss"], "grad_max_over_scale": worst,
-            "grad_median_over_scale": median, "param_share": share}
+        g = want["grads"][name].abs()
+        raise AssertionError(
+            f"{what}: updated parameters {share:.4f} within the limit "
+            f"({name} {tuple(g.shape)}: median |gradient| "
+            f"{float(g.median()) / (float(g.max()) or 1.0):.3g} of its "
+            f"largest)")
+    out = {"loss": got["loss"], "grad_max_over_scale": worst,
+           "grad_median_over_scale": median, "param_share": share}
+    if resolved:
+        out["resolved_entries_least_share"] = min(sure)
+    return out
 
 
-def mesh_detector(name: str, mesh, dev):
+def mesh_config(name: str, hw=None):
+    """The DetectorConfig of ``name`` with K = 256 at the net size ``hw``
+    (rows, columns; the zoo's own without it)."""
+    from torchfcn.core.config import DetectorConfig
+    from torchfcn.models import get_spec
+    grid = get_spec(name).grid
+    if hw is not None:
+        grid = dataclasses.replace(grid, im_height=hw[0], im_width=hw[1])
+    return DetectorConfig(grid=grid, model=name, max_candidates=K)
+
+
+def mesh_detector(name: str, mesh, dev, hw=None, dtype=torch.bfloat16):
     from torchfcn.serve.detector import Detector
     from torchfcn.serve.profile import bias_heads
-    det = Detector(name, max_candidates=K, dtype=torch.bfloat16,
+    det = Detector(name, config=mesh_config(name, hw), dtype=dtype,
                    rng_seed=SEED, device=dev, mesh=mesh)
     bias_heads(det)
     return det
@@ -3249,7 +3349,7 @@ def mesh_heads(det, frames, mesh) -> list:
     return [h.float().cpu() for h in heads]
 
 
-def mesh_detect(name: str, mesh, frames, counters: dict) -> dict:
+def mesh_detect(name: str, mesh, frames, counters: dict, hw=None) -> dict:
     """One counted run of a meshed Detector (``mesh`` None: one process)
     on the global ``frames``: its result and heads on the host, and the
     launches of each kernel in this process; on a mesh also each kernel
@@ -3259,7 +3359,7 @@ def mesh_detect(name: str, mesh, frames, counters: dict) -> dict:
     from torchfcn.serve import detector
     modules = {"layers": layers, "googlenet": googlenet,
                "detector": detector}
-    det = mesh_detector(name, mesh, "cuda")
+    det = mesh_detector(name, mesh, "cuda", hw)
     calls = {fn: [] for _, fn in MESH_RECORDED}
     for fn in counters.values():
         fn.launches = 0
@@ -3299,45 +3399,113 @@ def wrong_halo_heads(det, frames, mesh) -> list:
         halo._edges = real
 
 
-def halo_share(det, frames) -> dict:
-    """The halo exchange's share of a row-sharded Detector call: host
-    clock around each exchange (synchronised) against the whole call
-    (median of REPS after WARMUP calls)."""
+@contextlib.contextmanager
+def collective_clock(spent: dict):
+    """Inside the scope, the host-clock seconds (synchronised before and
+    after) of every halo exchange, every all_reduce (the demean min / max,
+    the pyramid's window sums, GroupNorm's statistics) and every other
+    all_gather (the heads' bands, the bands' lengths) add up in ``spent``
+    under "halo", "all_reduce" and "gather", with their counts under
+    "<key>_n"."""
+    import torch.distributed as dist
+
     import torchfcn.parallel.halo as halo
-    spent = []
-    real = halo._edges
+    real = {"halo": (halo, "_edges"), "all_reduce": (dist, "all_reduce"),
+            "gather": (dist, "all_gather")}
+    fns = {key: getattr(mod, attr) for key, (mod, attr) in real.items()}
+    inside = []
 
-    def timed(*args):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = real(*args)
-        torch.cuda.synchronize()
-        spent.append(time.perf_counter() - t0)
-        return out
+    def clocked(key):
+        def call(*args, **kw):
+            if inside:           # an all_gather of a halo exchange
+                return fns[key](*args, **kw)
+            inside.append(key)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fns[key](*args, **kw)
+            finally:
+                torch.cuda.synchronize()
+                spent[key] = spent.get(key, 0.0) + time.perf_counter() - t0
+                spent[key + "_n"] = spent.get(key + "_n", 0) + 1
+                inside.pop()
+        return call
 
-    halo._edges = timed
+    for key, (mod, attr) in real.items():
+        setattr(mod, attr, clocked(key))
     try:
-        calls, shares = [], []
-        for i in range(WARMUP + REPS):
-            del spent[:]
+        yield
+    finally:
+        for key, (mod, attr) in real.items():
+            setattr(mod, attr, fns[key])
+
+
+def collective_share(det, frames, reps: int = REPS) -> dict:
+    """The collectives' share of a row-sharded Detector call: host clock
+    around each halo exchange, all_reduce and other all_gather
+    (collective_clock) against the whole call, medians of ``reps`` calls
+    after WARMUP."""
+    calls, shares = [], {"halo": [], "all_reduce": [], "gather": []}
+    counts = {}
+    for i in range(WARMUP + reps):
+        spent = {}
+        with collective_clock(spent):
             t0 = time.perf_counter()
             det(frames)
             torch.cuda.synchronize()
-            if i >= WARMUP:
-                calls.append(time.perf_counter() - t0)
-                shares.append(sum(spent))
-    finally:
-        halo._edges = real
+            wall = time.perf_counter() - t0
+        if i >= WARMUP:
+            calls.append(wall)
+            for key in shares:
+                shares[key].append(spent.get(key, 0.0))
+            counts = {k: v for k, v in spent.items() if k.endswith("_n")}
     call = statistics.median(calls)
-    return {"call_ms": call * 1e3, "halo_ms": statistics.median(shares) * 1e3,
-            "exchanges": len(spent),
-            "halo_share": statistics.median(shares) / call}
+    out = {"call_ms": call * 1e3, "reps": reps}
+    for key, values in shares.items():
+        out[f"{key}_ms"] = statistics.median(values) * 1e3
+        out[f"{key}_share"] = statistics.median(values) / call
+        out[f"{key}_calls"] = counts.get(key + "_n", 0)
+    # the name the halo exchange's count had before the other collectives
+    out["exchanges"] = out["halo_calls"]
+    return out
 
 
-def mesh_rank(frames, batch) -> dict:
+# the fault each row-sharded parity step's control runs with: each band's
+# GroupNorm statistics its own, or every halo row from a neighbour zeroed
+MESH_FAULTS = {"resnet_fpn_detectnet": "statistics", "fcn8s_bbox": "halo"}
+
+
+def mesh_fault_step(mesh, batch, name: str) -> dict:
+    """The control of a row-sharded parity step: ``mesh_train_step`` with
+    MESH_FAULTS' fault, which check_mesh_step must catch (the exchanges
+    still run, so the ranks stay in step)."""
+    import torchfcn.parallel.halo as halo
+    from torchfcn.models import layers
+    if MESH_FAULTS[name] == "statistics":
+        module, attr = layers, "all_reduce_sum"
+        fault = lambda x, group: x          # noqa: E731
+    else:
+        module, attr = halo, "_edges"
+        real_edges = halo._edges
+
+        def fault(*args):
+            return tuple(None if part is None else torch.zeros_like(part)
+                         for part in real_edges(*args))
+    real = getattr(module, attr)
+    setattr(module, attr, fault)
+    try:
+        return mesh_train_step(mesh, batch, mesh.device, name=name)
+    finally:
+        setattr(module, attr, real)
+
+
+def mesh_rank(frames, batch, family_frames, family_batches) -> dict:
     """One of two processes that share the card over gloo: the (data=2)
     train step, then the (space=2) bf16 and e5m2 Detectors and the
-    (data=2) Detector, each counted."""
+    (data=2) Detector, each counted; then each of MESH_FAMILIES row-sharded
+    (space=2) and counted, with its collectives' share, and the (space=2)
+    parity steps of MESH_PARITY_FAMILIES, each with its control.
+    Rank 0 also runs the one process's references."""
     from torchfcn.core.config import MeshConfig
     from torchfcn.core.mesh import make_mesh
     from torchfcn.ops.cuda import build
@@ -3360,19 +3528,52 @@ def mesh_rank(frames, batch) -> dict:
         run = mesh_detect(name, mesh, frames, counters)
         det = run.pop("det")
         if key == "space_bf16":
-            run["halo"] = halo_share(det, frames)
+            run["halo"] = collective_share(det, frames)
             run["wrong_halo_heads"] = wrong_halo_heads(det, frames, mesh)
         out[key] = run
+    # the other families row-sharded: every rank's bands of each frame; in
+    # float32 (TF32 off) first, the heads alone
+    for key, name, hw in MESH_FAMILIES:
+        if not name.endswith("_serving"):
+            det = mesh_detector(name, space, "cuda", hw, torch.float32)
+            out[f"f32_{key}"] = mesh_heads(det, family_frames[hw], space)
+    for key, name, hw in MESH_FAMILIES:
+        t0 = time.perf_counter()
+        run = mesh_detect(name, space, family_frames[hw], counters, hw)
+        det = run.pop("det")
+        run["collectives"] = collective_share(det, family_frames[hw],
+                                              MESH_COLLECTIVE_REPS)
+        run["seconds"] = time.perf_counter() - t0
+        out[key] = run
+    for name in MESH_PARITY_FAMILIES:
+        t0 = time.perf_counter()
+        out[f"train_{name}"] = mesh_train_step(
+            space, family_batches[name], space.device,
+            timed=MESH_TIMED_STEPS, name=name)
+        out[f"train_{name}"]["seconds"] = time.perf_counter() - t0
+        out[f"control_{name}"] = mesh_fault_step(
+            space, family_batches[name], name)
     # the one-process runs in this process (mesh=None) on the batch in two
     # calls of half the batch: the problem size of each rank's convs, by
     # which cuDNN picks its bf16 algorithms
     half = len(frames) // 2
-    for name in ("googlenet_detectnet", "googlenet_detectnet_serving"):
-        runs = [mesh_detect(name, None, part, counters)
-                for part in (frames[:half], frames[half:])]
-        out[name] = {key: [torch.cat(parts) for parts in
-                           zip(*(r[key] for r in runs))]
-                     for key in ("result", "heads")}
+    refs = [(name, name, frames, None) for name in
+            ("googlenet_detectnet", "googlenet_detectnet_serving")]
+    if space.rank == 0:
+        refs += [(f"one_{key}", name, family_frames[hw], hw)
+                 for key, name, hw in MESH_FAMILIES]
+    for ref, name, fr, hw in refs:
+        runs = [mesh_detect(name, None, part, counters, hw)
+                for part in (fr[:half], fr[half:])]
+        out[ref] = {key: [torch.cat(parts) for parts in
+                          zip(*(r[key] for r in runs))]
+                    for key in ("result", "heads")}
+    if space.rank == 0:
+        for key, name, hw in MESH_FAMILIES:
+            if not name.endswith("_serving"):
+                det = mesh_detector(name, None, "cuda", hw, torch.float32)
+                out[f"one_f32_{key}"] = mesh_heads(det, family_frames[hw],
+                                                   None)
     return out
 
 
@@ -3470,13 +3671,142 @@ def compare_runs(got: list, want: dict, what: str,
     return out
 
 
+def compare_family_runs(got: list, want: dict, what: str, name: str,
+                        hw) -> dict:
+    """A row-sharded family's global result on its ranks against the one
+    process's on the same frames (``want``, two calls of half the batch):
+    every rank the same result; the heads within MESH_HEAD_TOL of their
+    scale; the result equal, integers and confidences exactly, to decode +
+    NMS on the CPU of the meshed heads, and to the one process's result
+    where the heads are bit-equal (else the share of equal box entries is
+    reported: a box near a rounding edge moves where a bf16 rounding
+    moved)."""
+    from torchfcn.serve.detector import Detector
+    from torchfcn.serve.result import DetectionResult
+    first = got[0]["result"]
+    for r in got[1:]:
+        for a, b in zip(r["result"], first):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{what}: the ranks' results differ")
+    res = DetectionResult(*first)
+    if int(res.valid.sum()) == 0:
+        raise AssertionError(f"{what}: no detections, nothing was compared")
+    heads = got[0]["heads"]
+    errs = head_errors(heads, want["heads"])
+    if max(errs) > MESH_HEAD_TOL:
+        raise AssertionError(f"{what}: heads differ by {errs} of scale")
+    cpu = Detector(name, config=mesh_config(name, hw), dtype=torch.bfloat16,
+                   rng_seed=SEED, device="cpu")
+    with torch.inference_mode():
+        own = cpu._decode_nms(*heads, hw)
+    assert_same_result(res, own, f"{what} vs decode+NMS on the cpu of its "
+                       f"heads")
+    one = DetectionResult(*want["result"])
+    bit_equal = all(torch.equal(g, w) for g, w in zip(heads,
+                                                       want["heads"]))
+    if bit_equal:
+        assert_same_result(res, one, f"{what} vs the one process")
+    return {"detections": int(res.valid.sum()),
+            "heads_max_over_scale": errs, "heads_bit_equal": bit_equal,
+            "result_equal": all(torch.equal(a.cpu(), b.cpu())
+                                for a, b in zip(res, one)),
+            "boxes_equal_share": float((res.boxes == one.boxes).float()
+                                       .mean()),
+            "against_plain": [r["against_plain"] for r in got],
+            "launches_per_rank": [r["launches"] for r in got],
+            "collectives": got[0]["collectives"],
+            "seconds": max(r["seconds"] for r in got)}
+
+
+def cudnn_batch_dependence(rng, card: str) -> dict:
+    """ROADMAP Queue 3 item 5: the bf16 heads of googlenet_detectnet on one
+    call of BATCH frames against two calls of half of them, with cuDNN's
+    default flags and under ``torch.backends.cudnn.flags(deterministic=
+    True, benchmark=False)``: whether they are bit-equal, the share of
+    equal entries, and the device time per batch (busy_ms) under each."""
+    frames = rng.integers(0, 256, (BATCH, NET, NET, 3), dtype=np.uint8)
+    det = mesh_detector("googlenet_detectnet", None, "cuda")
+    half = BATCH // 2
+    out = {}
+    for tag in ("default", "deterministic"):
+        scope = torch.backends.cudnn.flags(
+            enabled=True, benchmark=False, deterministic=True,
+            allow_tf32=torch.backends.cudnn.allow_tf32) \
+            if tag == "deterministic" else contextlib.nullcontext()
+        with scope:
+            whole = mesh_heads(det, frames, None)
+            parts = [mesh_heads(det, p, None)
+                     for p in (frames[:half], frames[half:])]
+            ms = busy_ms(lambda: det(frames))
+        halves = [torch.cat(p) for p in zip(*parts)]
+        out[tag] = {
+            "heads_bit_equal": all(torch.equal(w, h)
+                                   for w, h in zip(whole, halves)),
+            "equal_share": [float((w == h).float().mean())
+                            for w, h in zip(whole, halves)],
+            "max_over_scale": head_errors(whole, halves),
+            "busy_ms_per_batch": ms}
+    out["deterministic_cost"] = (out["deterministic"]["busy_ms_per_batch"]
+                                 / out["default"]["busy_ms_per_batch"] - 1)
+    log("mesh", f"cuDNN batch dependence, googlenet_detectnet bf16 B = "
+        f"{BATCH} against 2 x {half}: default {out['default']}; "
+        f"deterministic=True, benchmark=False {out['deterministic']}; "
+        f"device-time cost {out['deterministic_cost'] * 100:.1f} % on "
+        f"{card}")
+    return out
+
+
+def group_norm_cost(card: str) -> dict:
+    """The port's GroupNorm (float64 statistics, one form sharded or not)
+    against ``F.group_norm`` inside resnet_fpn_detectnet's bf16 forward at
+    BATCH x 448x448: device time per forward (busy_ms), in turns
+    (F.group_norm, the port's, the port's, F.group_norm), and the heads'
+    difference, over their scale.  ``F.group_norm`` is a yardstick, used
+    nowhere in the port."""
+    import torch.nn.functional as F
+
+    from torchfcn.models import layers
+
+    def library(self, x, mesh=None):
+        x = x.to(torch.float32)
+        return F.group_norm(x, self.num_groups, self.weight, self.bias,
+                            self.eps)
+
+    det = mesh_detector("resnet_fpn_detectnet", None, "cuda")
+    frames = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, 256, (BATCH, NET, NET, 3), dtype=np.uint8)).cuda()
+    port = layers.GroupNorm.forward
+    times, heads = {"port": [], "library": []}, {}
+    try:
+        with torch.inference_mode():
+            for tag in ("library", "port", "port", "library"):
+                layers.GroupNorm.forward = port if tag == "port" else library
+                times[tag].append(busy_ms(lambda: det.model(frames)))
+                heads[tag] = det.model(frames)
+    finally:
+        layers.GroupNorm.forward = port
+    out = {"port_ms": times["port"], "library_ms": times["library"],
+           "cost": statistics.median(times["port"])
+           / statistics.median(times["library"]) - 1,
+           "heads_max_over_scale": head_errors(
+               [heads["port"][k] for k in ("coverage", "bboxes")],
+               [heads["library"][k] for k in ("coverage", "bboxes")])}
+    log("mesh", f"GroupNorm in resnet_fpn_detectnet bf16 B = {BATCH} "
+        f"{NET}x{NET}: forward {out['port_ms']} ms of device time with the "
+        f"port's, {out['library_ms']} with F.group_norm "
+        f"({out['cost'] * 100:+.1f} %); heads apart by "
+        f"{out['heads_max_over_scale']} of scale, on {card}")
+    return out
+
+
 def mesh_launches(mesh: dict, name: str) -> dict:
     """A kernel's launches in each process of each mesh run: the NCCL 1 x 1
     Detector's, and per rank the gloo runs'."""
     two = mesh["gloo_two_ranks"]
     out = {"nccl_1x1": [mesh["nccl"]["detector"]["launches_per_rank"][0]
                         [name]]}
-    for key in ("space_bf16", "space_e5m2", "data_bf16"):
+    for key in ("space_bf16", "space_e5m2", "data_bf16") + tuple(
+            key for key, _, _ in MESH_FAMILIES):
         out[key] = [n[name] for n in two[key]["launches_per_rank"]]
     return out
 
@@ -3486,7 +3816,8 @@ def mesh_plain_err(mesh: dict, name: str) -> float:
     recorded inputs of every rank of every meshed Detector run."""
     runs = [mesh["nccl"]["detector"]] + [
         mesh["gloo_two_ranks"][key]
-        for key in ("space_bf16", "space_e5m2", "data_bf16")]
+        for key in ("space_bf16", "space_e5m2", "data_bf16") + tuple(
+            key for key, _, _ in MESH_FAMILIES)]
     return max(r[name]["max_abs_err"] for run in runs
                for r in run["against_plain"] if name in r)
 
@@ -3498,12 +3829,28 @@ def phase_mesh(rng, counters, card: str) -> dict:
     from torchfcn.core.mesh import make_mesh
     from torchfcn.parallel.distributed import (
         initialize_distributed, run_ranks, shutdown_distributed)
-    out = {"stem_tail_halo": check_stem_halo(rng, "cuda")}
+    out = {"stem_tail_halo": check_stem_halo(rng, "cuda"),
+           "cudnn_batch_dependence": cudnn_batch_dependence(rng, card),
+           "group_norm_cost": group_norm_cost(card)}
     frames = rng.integers(0, 256, (BATCH, NET, NET, 3), dtype=np.uint8)
     batch = train_batch(rng, MESH_TRAIN_B, NET, 4)
+    family_frames = {hw: rng.integers(0, 256, (BATCH, *hw, 3),
+                                      dtype=np.uint8)
+                     for hw in sorted({hw for _, _, hw in MESH_FAMILIES})}
+    family_batches = {}
+    for name, (net, _, classes, _, with_seg, offset) in \
+            MESH_PARITY_FAMILIES.items():
+        family_batches[name] = train_batch(rng, MESH_PARITY_B, net,
+                                           classes - offset)
+        if with_seg:
+            family_batches[name]["seg"] = rng.integers(
+                0, classes, (MESH_PARITY_B, net, net)).astype(np.int32)
 
     # the one process, mesh=None: the references
     one_step = mesh_train_step(None, batch, "cuda", timed=MESH_TIMED_STEPS)
+    one_steps = {name: mesh_train_step(None, family_batches[name], "cuda",
+                                       timed=MESH_TIMED_STEPS, name=name)
+                 for name in MESH_PARITY_FAMILIES}
     refs = {name: mesh_detect(name, None, frames, counters)
             for name in ("googlenet_detectnet", "googlenet_detectnet_serving")}
 
@@ -3531,8 +3878,8 @@ def phase_mesh(rng, counters, card: str) -> dict:
 
     # two processes on the one card over gloo
     t0 = time.perf_counter()
-    ranks = run_ranks(mesh_rank, 2, frames, batch, device="cuda",
-                      backend="gloo")
+    ranks = run_ranks(mesh_rank, 2, frames, batch, family_frames,
+                      family_batches, device="cuda", backend="gloo")
     wall = time.perf_counter() - t0
     two = {"train": check_mesh_step(ranks[0]["train"], one_step,
                                     "gloo (data=2) train step", True)}
@@ -3563,6 +3910,54 @@ def phase_mesh(rng, counters, card: str) -> dict:
             missing = [k for k in required if r[key]["launches"][k] == 0]
             if missing:
                 raise AssertionError(f"{key}: a rank launched no {missing}")
+    # the other families row-sharded, each against the one process
+    for key, name, hw in MESH_FAMILIES:
+        two[key] = compare_family_runs([r[key] for r in ranks],
+                                       ranks[0][f"one_{key}"],
+                                       f"space {key} {name}", name, hw)
+        if f"f32_{key}" in ranks[0]:
+            errs = head_errors(ranks[0][f"f32_{key}"],
+                               ranks[0][f"one_f32_{key}"])
+            if max(errs) > MESH_F32_HEAD_TOL:
+                raise AssertionError(f"space {key} {name} float32: heads "
+                                     f"differ by {errs} of scale")
+            two[key]["f32_heads_max_over_scale"] = errs
+        for r in ranks:
+            missing = [k for k in MESH_FAMILY_KERNELS.get(
+                key, ("group_rects",)) if r[key]["launches"][k] == 0]
+            if missing:
+                raise AssertionError(f"{key}: a rank launched no {missing}")
+        r = {k: v for k, v in two[key].items()
+             if k not in ("collectives", "against_plain")}
+        shares = ", ".join(
+            f"{part} {c[part + '_ms']:.3f} ms ({c[part + '_share'] * 100:.1f}"
+            f" %, {c[part + '_calls']} calls)"
+            for c in [two[key]["collectives"]]
+            for part in ("halo", "all_reduce", "gather"))
+        log("mesh", f"{key} ({name}, {BATCH} x {hw[0]}x{hw[1]}, space=2): "
+            f"{r}; collectives of a {two[key]['collectives']['call_ms']:.3f}"
+            f" ms call: {shares} on {card}")
+    # their float32 parity steps, each with a control that must fail the
+    # same check
+    for name in MESH_PARITY_FAMILIES:
+        got, want = ranks[0][f"train_{name}"], one_steps[name]
+        what = f"gloo (space=2) {name} train step"
+        try:
+            check_mesh_step(ranks[0][f"control_{name}"], want,
+                            f"control of the {what}", True,
+                            MESH_SPACE_GRAD_MEDIAN, resolved=True)
+        except AssertionError as e:
+            control = str(e)
+        else:
+            raise AssertionError(f"control of the {what} ({MESH_FAULTS[name]}"
+                                 f" fault) passed its check")
+        two[f"train_{name}"] = dict(
+            check_mesh_step(got, want, what, True, MESH_SPACE_GRAD_MEDIAN,
+                            resolved=True),
+            step_ms=got["step_ms"], one_process_step_ms=want["step_ms"],
+            seconds=got["seconds"], control=control)
+        log("mesh", f"(space=2) parity step {name} B={MESH_PARITY_B}: "
+            f"{two[f'train_{name}']} on {card}")
     out.update(nccl=nccl, gloo_two_ranks=two,
                one_process_launches={k: v["launches"]
                                      for k, v in refs.items()})

@@ -1,8 +1,9 @@
 """torchfcn's Caffe primitives of the VGG and FCN families and their
 demean preprocessing against tpufcn's, on seeded inputs.
 
-Tolerances, all on float32: average pools within rtol 1e-6 (both sum at
-most k^2 float32 values, in other orders); the upsample forms within
+Tolerances, all on float32: the pyramid's average pools within rtol 1e-6
+(tpufcn sums at most k^2 float32 values, the port the same values in
+float64); the upsample forms within
 atol 1e-6 on unit-scale inputs (tpufcn sums float32 products, the port's
 separable form float64 ones, rounded once); demean exact (elementwise
 float32 with the same roundings)."""
@@ -18,32 +19,38 @@ from tpufcn.ops import caffe_layers as jax_cl
 from tpufcn.ops.image import demean_bgr as jax_demean
 from tpufcn.ops.image import preprocess_bgr as jax_preprocess
 from torchfcn.models.layers import nchw, nhwc, upsample_factor
+from torchfcn.models.vgg import pyramid_pool
 from torchfcn.ops import caffe_layers as cl
 from torchfcn.ops.image import demean_bgr, preprocess_bgr
 
 torch.set_num_threads(2)
 
 
-# (H, W, kernel, stride, pad): the pyramid's exact-fit adaptive pools at
-# 56x56, ceil slack past the edge (odd sizes), and padding with slack
-@pytest.mark.parametrize("h,w,k,s,p", [(56, 56, 56, 56, 0), (56, 56, 8, 8, 0),
-                                       (56, 56, 14, 14, 0), (7, 9, 2, 2, 0),
-                                       (13, 11, 3, 2, 0), (9, 10, 3, 2, 1),
-                                       (5, 5, 4, 3, 1)])
+def _pyramid_avg_pool(x, k):
+    """The VGG pyramid's Caffe average pool (k x k, stride k, no padding)
+    of an NHWC map, the input dtype out."""
+    sums, div = pyramid_pool(nchw(x).to(torch.float64), k, 0, x.shape[1])
+    return nhwc((sums / div).to(x.dtype))
+
+
+# (H, W, kernel): the pyramid's exact-fit adaptive pools at 56x56, and ceil
+# slack past the edge (odd sizes)
+@pytest.mark.parametrize("h,w,k", [(56, 56, 56), (56, 56, 8), (56, 56, 14),
+                                   (7, 9, 2)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_avg_pool_matches_jax(rng, h, w, k, s, p, dtype):
+def test_avg_pool_matches_jax(rng, h, w, k, dtype):
     x = rng.standard_normal((2, h, w, 5)).astype(np.float32) * 3
     tx = torch.from_numpy(x).to(getattr(torch, dtype))
-    got = cl.avg_pool_caffe(tx, k, s, p)
+    got = _pyramid_avg_pool(tx, k)
     want = np.asarray(jax_cl.avg_pool_caffe(
-        jnp.asarray(tx.float().numpy()).astype(dtype), k, s, p)
+        jnp.asarray(tx.float().numpy()).astype(dtype), k, k)
         .astype(jnp.float32))
     assert got.dtype == tx.dtype
-    assert got.shape[1:3] == (cl.pooled_size(h, k, s, p),
-                              cl.pooled_size(w, k, s, p)) == want.shape[1:3]
+    assert got.shape[1:3] == (cl.pooled_size(h, k, k),
+                              cl.pooled_size(w, k, k)) == want.shape[1:3]
     if dtype == "float32":
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
-    else:   # one bf16 rounding of float32 sums that agree to 1e-6
+    else:   # one bf16 rounding of sums that agree to 1e-6
         np.testing.assert_allclose(got.float().numpy(), want, rtol=2 ** -8,
                                    atol=1e-6)
 
@@ -52,7 +59,7 @@ def test_avg_pool_divisor_leaves_out_the_ceil_slack():
     """A 3x3 input pooled 2x2/2: the edge windows hold 2 and 1 values and
     are divided by just those (Caffe's hend = min(hstart + k, in + pad))."""
     x = torch.arange(9, dtype=torch.float32).reshape(1, 3, 3, 1)
-    got = cl.avg_pool_caffe(x, 2, 2)[0, ..., 0]
+    got = _pyramid_avg_pool(x, 2)[0, ..., 0]
     assert got.tolist() == [[2.0, 3.5], [6.5, 8.0]]
 
 

@@ -45,16 +45,19 @@ def test_mesh_layout_and_errors_match_tpufcn(data, space):
 
 
 def test_mesh_config_and_row_constraint():
-    """The port's MeshConfig is tpufcn's copy; row sharding refuses frames
-    whose rows do not divide by space x stride, naming the constraint."""
+    """The port's MeshConfig is tpufcn's copy; row sharding splits rows
+    that do not divide by space x stride into uneven bands (440 rows: 224
+    + 216) and refuses only a frame with fewer stride-rows than ranks,
+    naming the constraint."""
     for cfg in (MeshConfig(), MeshConfig(4, 2)):
         assert cfg.num_devices == JMeshConfig(cfg.data,
                                               cfg.space).num_devices
     mesh = tmesh.Mesh(1, 2, 0, {"mesh": None, "data": None, "space": None},
                       "cpu")
     assert tmesh.space_sharded(mesh) and not tmesh.space_sharded(None)
-    tmesh.check_space_rows(448, mesh, 16)
-    with pytest.raises(ValueError, match="space x stride = 2 x 16"):
-        tmesh.check_space_rows(440, mesh, 16)
+    assert mesh.band(448) == (0, 224)
+    assert tmesh.row_bands(440, 2) == ((0, 224), (224, 216))
+    with pytest.raises(ValueError, match="at least 2 units of 32 rows"):
+        mesh.band(32)
     assert mesh.first_row_shard and not mesh.last_row_shard
     assert mesh.shape == {"data": 1, "space": 2}

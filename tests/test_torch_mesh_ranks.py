@@ -16,10 +16,11 @@ import torch.distributed as dist
 
 from torchfcn.core.config import DataConfig, GridConfig, MeshConfig
 from torchfcn.core.dtypes import DTypePolicy
-from torchfcn.core.mesh import local_batch, make_mesh
+from torchfcn.core.mesh import local_batch, make_mesh, row_bands
 from torchfcn.parallel import halo
 from torchfcn.parallel.distributed import (
-    initialize_distributed, run_ranks, shard_batch, split_rows)
+    all_gather_bands, all_reduce_sum, initialize_distributed, run_ranks,
+    shard_batch, split_rows)
 
 POLICIES = {
     "parity": DTypePolicy.parity(),
@@ -72,6 +73,53 @@ def rank_halo(x, top, bottom, fill, weight, space):
             halo.attached(top, bottom, mesh, fill))
 
 
+def rank_halo_bands(x, top, bottom, fill, bottom_edge, weight, space):
+    """``rank_halo`` on this rank's band of ``row_bands(rows, space)``,
+    with ``bottom_edge`` rows of fill below the frame."""
+    mesh = mesh_of(1, space)
+    first, n = row_bands(x.shape[-2], space)[mesh.space_index]
+    mine = x[..., first:first + n, :].clone().requires_grad_(True)
+    ext = halo.halo_rows(mine, top, bottom, mesh, fill, bottom_edge)
+    (ext * weight[mesh.space_index][..., :ext.shape[-2], :]).sum().backward()
+    return (ext.detach(), mine.grad,
+            halo.attached(top, bottom, mesh, fill, bottom_edge))
+
+
+# --- the collectives of uneven bands ---
+
+def rank_gather_bands(parts, dim):
+    """``all_gather_bands`` of this rank's part."""
+    mesh = mesh_of(1, len(parts))
+    return all_gather_bands(parts[mesh.space_index], mesh.space_group, dim)
+
+
+def rank_all_reduce(xs, weights):
+    """The gradient of sum(all_reduce_sum(x)^2 * w) with respect to this
+    rank's x, where each rank's loss holds its own w."""
+    mesh = mesh_of(1, len(xs))
+    x = xs[mesh.space_index].clone().requires_grad_(True)
+    y = all_reduce_sum(x, mesh.space_group)
+    (y * y * weights[mesh.space_index]).sum().backward()
+    return y.detach(), x.grad
+
+
+def rank_group_norm(x, weight, bias, gout, space):
+    """The row-sharded GroupNorm of this rank's band of ``x`` (NCHW,
+    ``row_bands``): its output rows and the gradients of sum(out * gout)
+    with respect to its rows, scale and bias."""
+    from torchfcn.models.layers import GroupNorm
+    mesh = mesh_of(1, space)
+    first, n = row_bands(x.shape[-2], space)[mesh.space_index]
+    gn = GroupNorm(x.shape[1])
+    with torch.no_grad():
+        gn.weight.copy_(weight)
+        gn.bias.copy_(bias)
+    mine = x[:, :, first:first + n].clone().requires_grad_(True)
+    out = gn(mine, mesh)
+    (out * gout[:, :, first:first + n]).sum().backward()
+    return out.detach(), mine.grad, gn.weight.grad, gn.bias.grad
+
+
 # --- models ---
 
 def _model(name, state, kwargs, policy, device):
@@ -95,7 +143,7 @@ def rank_forward(name, state, kwargs, x, data, space, policy="parity"):
 # --- training ---
 
 def rank_train(name, state, kwargs, cfg, batch, data, space, policy,
-               preprocessing, steps=1):
+               preprocessing, steps=1, with_seg=False, label_offset=0):
     """``steps`` steps of the port's train step on this rank's share of
     ``batch`` (with a mesh unless data = space = 1): the parameters after
     them and the last metrics."""
@@ -107,7 +155,8 @@ def rank_train(name, state, kwargs, cfg, batch, data, space, policy,
     st = tstep.TrainState(
         model=model, optimizer=tstep.make_optimizer(cfg, model.parameters()),
         generator=torch.Generator().manual_seed(cfg.seed), policy=pol)
-    step = tstep.make_train_step(cfg, mesh, preprocessing=preprocessing)
+    step = tstep.make_train_step(cfg, mesh, with_seg, preprocessing,
+                                 label_offset)
     local = {k: torch.as_tensor(v) for k, v in
              shard_batch(batch, mesh).items()}
     for _ in range(steps):
@@ -116,7 +165,7 @@ def rank_train(name, state, kwargs, cfg, batch, data, space, policy,
             {k: float(v) for k, v in metrics.items()})
 
 
-def compositor(mesh=None, seed=3):
+def compositor(mesh=None, seed=3, hw=64):
     from torchfcn.data.device_compositor import (
         CropLibrary, DeviceCompositePipeline)
     rng = np.random.default_rng(0)
@@ -125,21 +174,21 @@ def compositor(mesh=None, seed=3):
     masks = [np.zeros((24, 32), np.uint8), np.zeros((30, 20), np.uint8)]
     masks[0][4:20, 6:26] = 255
     masks[1][3:27, 2:18] = 255
-    bgs = (rng.random((3, 64, 64, 3)) * 255).astype(np.uint8)
+    bgs = (rng.random((3, hw, hw, 3)) * 255).astype(np.uint8)
     return DeviceCompositePipeline(
         CropLibrary.from_arrays(crops, masks, [0, 1]), bgs,
-        GridConfig(64, 64, 8, 2), DataConfig(batch_size=4), box_capacity=4,
+        GridConfig(hw, hw, 8, 2), DataConfig(batch_size=4), box_capacity=4,
         seed=seed, mesh=mesh, device="cpu")
 
 
-def rank_compose(data, space, n_batches=2):
+def rank_compose(data, space, n_batches=2, hw=64):
     """This rank's share of the mesh compositor's first batches."""
-    pipe = compositor(mesh_of(data, space))
+    pipe = compositor(mesh_of(data, space), hw=hw)
     return [dict(pipe.batch(4)) for _ in range(n_batches)]
 
 
 def rank_trainer(cfg, batches, data, space, validator_scores=None,
-                 cache=0):
+                 cache=0, policy="parity"):
     """A Trainer with ``cfg.mesh = (data, space)`` made from the config
     over ``batches`` (global host batches, or a DeviceBatchCache of
     ``cache`` of them): its first and final parameters, step, best, the
@@ -157,7 +206,7 @@ def rank_trainer(cfg, batches, data, space, validator_scores=None,
     from torchfcn.models import build
     trainer = Trainer(cfg, build(cfg.model, num_classes=cfg.grid.num_classes),
                       device="cpu", validator=validator,
-                      policy=POLICIES["parity"], log_sink=lambda s: None)
+                      policy=POLICIES[policy], log_sink=lambda s: None)
     src = iter(batches)
     if cache:
         src = iter(DeviceBatchCache(trainer.put, src, cache))

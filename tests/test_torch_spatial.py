@@ -13,7 +13,9 @@ sum in another order than over the whole frame; at these sizes the heads
 differ by a float32 ulp or not at all).
 
 Single-process: the plain versions of the two pooling kernels with halo
-rows against the unsharded ones (exact), and the refusals."""
+rows against the unsharded ones (exact), and the stem tail's refusal of an
+odd row count.  The other families row-shard too:
+``test_torch_spatial_families.py`` and ``test_torch_spatial_zoo.py``."""
 
 import numpy as np
 import jax
@@ -27,7 +29,6 @@ from tpufcn.models import build as jax_build
 from tpufcn.parallel import shard_params_replicated, spatial_infer_sharding
 from torchfcn.convert.from_jax import load_jax_params
 from torchfcn.core.dtypes import DTypePolicy
-from torchfcn.core.mesh import Mesh
 from torchfcn.models import build
 from torchfcn.ops.cuda.lrn_pool import lrn_maxpool_cuda
 from torchfcn.ops.cuda.stem import check_inputs
@@ -129,15 +130,3 @@ def test_pool_kernels_plain_versions_on_halo_rows(space):
     assert torch.equal(torch.cat(parts, 1), lrn_maxpool_cuda(y))
     with pytest.raises(ValueError, match="even count"):
         check_inputs(x[:, :5].contiguous(), wr, br, w2, b2, None, 1, 1)
-
-
-@pytest.mark.parametrize("name", ["vgg_pyramid_detectnet", "fcn8s_bbox",
-                                  "fcn32s_seg", "resnet_fpn_detectnet"])
-def test_families_without_row_sharding_raise(name):
-    """Space sharding of the FCN, pyramid and ResNet-FPN families is not
-    ported: their forward raises naming the ROADMAP item (the data axis
-    serves and trains them)."""
-    mesh = Mesh(1, 2, 0, {"mesh": None, "data": None, "space": None}, "cpu")
-    model = build(name)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        model(torch.zeros((1, 64, 64, 3)), mesh=mesh)

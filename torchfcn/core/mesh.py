@@ -5,7 +5,8 @@
   after each rank's backward (``torchfcn.train.step``).
 * ``space``: row sharding of the activations (H) of one frame; the convs
   and pools of a rank read halo rows of its neighbours
-  (``torchfcn.parallel.halo``).
+  (``torchfcn.parallel.halo``).  ``row_bands`` plans the bands: each but
+  the last a multiple of 32 rows, the last the remainder.
 
 Rank ``r`` of the mesh sits at ``(data, space) = divmod(r, space)``, the
 row-major layout of the JAX package's ``reshape(data, space)``.  A mesh of
@@ -15,7 +16,7 @@ group of one process, and the collectives are still called.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -60,6 +61,13 @@ class Mesh:
     @property
     def last_row_shard(self) -> bool:
         return self.space_index == self.space - 1
+
+    def band(self, rows: int) -> Tuple[int, int]:
+        """(offset, rows) of this rank's band of a frame of ``rows`` rows
+        (``row_bands``); the whole frame without row sharding."""
+        if self.space == 1:
+            return 0, rows
+        return row_bands(rows, self.space)[self.space_index]
 
 
 def make_mesh(cfg: Optional[MeshConfig] = None, device=None) -> Mesh:
@@ -118,14 +126,46 @@ def space_sharded(mesh: Optional[Mesh]) -> bool:
     return mesh is not None and mesh.space > 1
 
 
-def check_space_rows(rows: int, mesh: Optional[Mesh], stride: int) -> None:
-    """Row sharding needs each rank's rows to be a multiple of the net's
-    deepest stride, so that every stride-2 layer starts each shard on an
-    even row and every shard holds the same rows: the frame's rows must
-    divide by ``space x stride``.  (The JAX package's GSPMD pads uneven
-    shards; the port does not.)"""
-    if space_sharded(mesh) and rows % (mesh.space * stride):
+# the rows of a band, but the last, are a multiple of this: the deepest
+# stride of the zoo (FCN-8s, ResNet-FPN), which every family's divides, so
+# that one plan serves every family and every caller that splits a frame
+# (the Detector, shard_batch, the mesh compositor, the loss's label bands)
+ROW_QUANTUM = 32
+
+
+def row_bands(rows: int, space: int) -> Tuple[Tuple[int, int], ...]:
+    """(offset, rows) of each space rank's band of a frame of ``rows``
+    rows.  Every band but the last holds a multiple of ROW_QUANTUM rows,
+    the nearest to an even share of what is left; the last holds the
+    remainder, which need not divide.  Raises ValueError when the frame
+    has fewer ROW_QUANTUM-row units (the last may be partial) than there
+    are ranks.  (The JAX package's GSPMD pads uneven shards instead.)"""
+    quantum = ROW_QUANTUM
+    units = -(-rows // quantum)
+    if units < space:
         raise ValueError(
-            f"space sharding needs the frame's rows to divide by space x "
-            f"stride = {mesh.space} x {stride} = {mesh.space * stride}; got "
-            f"{rows} rows")
+            f"row sharding over space = {space} needs at least {space} "
+            f"units of {quantum} rows (the zoo's deepest stride), the last "
+            f"may be partial; got {rows} rows ({units} units)")
+    bands, offset = [], 0
+    for s in range(space - 1):
+        left = space - s
+        # round half up of an even share, leaving a unit for each rank below
+        n = (2 * (rows - offset) + left * quantum) // (2 * left * quantum)
+        n = max(1, min(n, -(-(rows - offset) // quantum) - (left - 1)))
+        bands.append((offset, n * quantum))
+        offset += n * quantum
+    bands.append((offset, rows - offset))
+    return tuple(bands)
+
+
+def check_band(rows: int, mesh: Optional[Mesh], stride: int) -> None:
+    """A row-sharded model's input band: every band but the frame's last
+    must hold a multiple of the net's deepest ``stride``, so that each
+    stride-2 layer starts every band on an even row (``row_bands`` plans
+    such bands)."""
+    if space_sharded(mesh) and not mesh.last_row_shard and rows % stride:
+        raise ValueError(
+            f"a row band above the frame's last must hold a multiple of the "
+            f"net's deepest stride {stride}; got {rows} rows (plan the bands "
+            f"with torchfcn.core.mesh.row_bands)")

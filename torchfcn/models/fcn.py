@@ -12,9 +12,14 @@ which the Detector skips.
 VGG16 without pool5; ``score_fr_6`` on conv5_3 (stride 16) -> up k32 s16 p8.
 
 Every bilinear deconvolution runs in its separable form, in float32 on
-float32 scores.  Input: demeaned + min-max BGR in [0, 1], NHWC.  FCN-8s
-drops pool5 out ("dropout5", rate 0.5) in train mode; FCN-32s has no
-dropout, as in the JAX package.
+float32 scores (``models.layers.upsample_factor``).  Input: demeaned +
+min-max BGR in [0, 1], NHWC.  FCN-8s drops pool5 out ("dropout5", rate
+0.5) in train mode; FCN-32s has no dropout, as in the JAX package.
+
+On a mesh with ``space > 1`` both run row-sharded (``models/layers.py``):
+the backbone on each rank's band, pool5 (2x2/2) with no halo, and each
+deconvolution through its band of the global row matrix with one halo row
+above and below; every head comes out as the rank's rows.
 """
 
 from __future__ import annotations
@@ -23,20 +28,21 @@ from typing import Dict, Optional
 
 import torch
 
-from torchfcn.core.mesh import Mesh
+from torchfcn.core.mesh import Mesh, check_band
 from torchfcn.models.layers import (
-    CaffeConv, ZooModel, dropout, max_pool, nchw, nhwc, refuse_space)
+    CaffeConv, ZooModel, dropout, max_pool, nchw, nhwc, upsample_factor)
 from torchfcn.models.vgg import VGG16Backbone
-from torchfcn.ops.caffe_layers import upsample_bilinear_separable
 
 
 def _score(conv: CaffeConv, x: torch.Tensor) -> torch.Tensor:
-    """A 1x1 score conv in the compute dtype -> float32 NHWC."""
-    return nhwc(conv(x.to(conv.dtype)).float())
+    """A 1x1 score conv in the compute dtype -> float32 NCHW."""
+    return conv(x.to(conv.dtype)).float()
 
 
 class FCN8sBBox(ZooModel):
     """num_classes includes background (reference: 11)."""
+
+    row_stride = 32          # pool5: the deepest stride
 
     def __init__(self, num_classes: int = 11,
                  store_dtype: Optional[torch.dtype] = None,
@@ -54,26 +60,27 @@ class FCN8sBBox(ZooModel):
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
                 mesh: Optional[Mesh] = None) -> Dict[str, torch.Tensor]:
-        refuse_space(mesh, "FCN-8s")
-        taps = self.backbone(nchw(x))
-        p5 = dropout(max_pool(taps["conv5_3"], 2, 2),      # stride 32
+        check_band(x.shape[1], mesh, self.row_stride)
+        taps = self.backbone(nchw(x), mesh)
+        p5 = dropout(max_pool(taps["conv5_3"], 2, 2, mesh=mesh),  # stride 32
                      self.dropout_rate, self.training, generator, mesh)
         # bbox branch, stride 8
-        bboxes = upsample_bilinear_separable(
-            _score(self.score_conv5_bbox, p5), 8, 4, 2)
+        bboxes = upsample_factor(_score(self.score_conv5_bbox, p5), 4, mesh)
         # seg branch: FCN-8s skip fusion
-        up5 = upsample_bilinear_separable(_score(self.score_conv5, p5),
-                                          4, 2, 1)         # stride 16
+        up5 = upsample_factor(_score(self.score_conv5, p5), 2,
+                              mesh)                        # stride 16
         fuse4 = up5 + _score(self.score_pool4, taps["pool4"])
-        up4 = upsample_bilinear_separable(fuse4, 4, 2, 1)  # stride 8
+        up4 = upsample_factor(fuse4, 2, mesh)              # stride 8
         fuse3 = up4 + _score(self.score_pool3, taps["pool3"])
-        seg = upsample_bilinear_separable(fuse3, 16, 8, 4)  # full resolution
-        return {"coverage": torch.softmax(fuse3, dim=-1),
-                "bboxes": bboxes, "seg": seg}
+        seg = upsample_factor(fuse3, 8, mesh)              # full resolution
+        return {"coverage": torch.softmax(nhwc(fuse3), dim=-1),
+                "bboxes": nhwc(bboxes), "seg": nhwc(seg)}
 
 
 class FCN32sSeg(ZooModel):
     """num_classes includes background (reference: 12)."""
+
+    row_stride = 16          # conv5_3: the deepest stride
 
     def __init__(self, num_classes: int = 12,
                  store_dtype: Optional[torch.dtype] = None,
@@ -87,7 +94,7 @@ class FCN32sSeg(ZooModel):
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
                 mesh: Optional[Mesh] = None) -> Dict[str, torch.Tensor]:
-        refuse_space(mesh, "FCN-32s")
-        s = _score(self.score_fr_6, self.backbone(nchw(x))["conv5_3"])
-        seg = upsample_bilinear_separable(s, 32, 16, 8)    # full resolution
+        check_band(x.shape[1], mesh, self.row_stride)
+        s = _score(self.score_fr_6, self.backbone(nchw(x), mesh)["conv5_3"])
+        seg = nhwc(upsample_factor(s, 16, mesh))           # full resolution
         return {"seg": seg, "score": torch.softmax(seg, dim=-1)}

@@ -32,7 +32,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from torchfcn.core.mesh import Mesh, check_space_rows, space_sharded
+from torchfcn.core.mesh import Mesh, check_band, space_sharded
 from torchfcn.models.layers import (
     CaffeConv, LRN, LRNMaxPool, ZooModel, dropout, max_pool, nchw, nhwc)
 from torchfcn.ops.cuda.stem import stem_tail_cuda
@@ -97,11 +97,12 @@ class GoogLeNetDetectNet(ZooModel):
              "bboxes": (B, H/16, W/16, 4C) float32 corner offsets}, NHWC.
 
     ``mesh``: on a (data, space) mesh, ``frames`` are this rank's batch
-    shard and, with ``space > 1``, its band of rows (a multiple of 16),
-    and the outputs are this rank's rows of the heads.
+    shard and, with ``space > 1``, its band of rows (``core.mesh.
+    row_bands``: a multiple of 16 above the frame's last band), and the
+    outputs are this rank's rows of the heads.
     """
 
-    row_stride = 16          # the deepest stride: the band's rows divide
+    row_stride = 16          # the deepest stride: an inner band's rows divide
 
     FLAX_NAMES = {
         "conv1": "conv1/7x7_s2", "conv2_reduce": "conv2/3x3_reduce",
@@ -144,9 +145,7 @@ class GoogLeNetDetectNet(ZooModel):
     def forward(self, frames: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
                 mesh: Optional[Mesh] = None) -> Dict[str, torch.Tensor]:
-        if space_sharded(mesh):
-            check_space_rows(frames.shape[1] * mesh.space, mesh,
-                             self.row_stride)
+        check_band(frames.shape[1], mesh, self.row_stride)
         dtype = self.conv1.dtype
         store = self.store_dtype
         if store is not None and dtype != torch.bfloat16:

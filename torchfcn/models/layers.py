@@ -14,14 +14,19 @@ a compute dtype (``torchfcn.core.dtypes``); the models read each conv's
 dropout.
 
 Row sharding (``mesh`` with ``space > 1``, ``torchfcn.core.mesh``): each
-rank holds an equal band of every frame's rows.  A conv or pool of kernel
-k, stride s and padding p reads p halo rows from the rank above and
-k - s - p from the rank below (``torchfcn.parallel.halo``), filled as the
-layer pads at the frame's edges, and runs with no row padding of its own:
-each rank then computes exactly its own output rows, which needs each
-band's rows to divide by s (``core.mesh.check_space_rows``).  A ceil-mode
-pool without padding takes no fill at the bottom edge, where its ceil mode
-reproduces the global edge.  The across-channel LRN needs no halo.
+rank holds a band of every frame's rows (``core.mesh.row_bands``: each
+band but the last a multiple of 32 rows, which every net's deepest stride
+divides, the last the remainder).  A conv or pool of kernel k, stride s
+and padding p reads p halo rows from the rank above and k - s - p from
+the rank below (``torchfcn.parallel.halo``), filled as the layer pads at
+the frame's
+edges (p rows of fill above and below), and runs with no row padding of
+its own: each rank then computes exactly its own output rows, the last
+band's too, where s need not divide its rows.  A ceil-mode pool without
+padding takes no fill at the bottom edge, where its ceil mode reproduces
+the global edge.  The across-channel LRN needs no halo.  What reads a
+whole frame's rows (the pyramid's pools, GroupNorm's statistics) sums each
+band's share over the space group (``parallel.all_reduce_sum``).
 """
 
 from __future__ import annotations
@@ -29,30 +34,17 @@ from __future__ import annotations
 import math
 from typing import Dict, Optional, Tuple
 
-import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from torchfcn.core.mesh import Mesh, space_sharded
 from torchfcn.ops.caffe_layers import (
-    avg_pool_caffe, bilinear_upsample_matrix, max_pool_caffe,
-    upsample_bilinear_separable)
+    bilinear_upsample_matrix, max_pool_caffe, upsample_bilinear_separable)
 from torchfcn.ops.cuda.lrn import lrn_cuda
 from torchfcn.ops.cuda.lrn_pool import lrn_maxpool_cuda
+from torchfcn.parallel.distributed import all_reduce_sum, band_sizes
 from torchfcn.parallel.halo import attached, halo_rows
-
-SPACE_MISSING = ("space sharding of the {} family is not ported yet: ROADMAP "
-                 "Queue 1, what stays open of multi-GPU: space sharding of the "
-                 "FCN, pyramid and ResNet-FPN families (their upsampling "
-                 "needs halos of its own)")
-
-
-def refuse_space(mesh: Optional[Mesh], family: str) -> None:
-    """The families whose forward has no row-sharded form raise under
-    ``space > 1``; the data axis serves and trains them."""
-    if space_sharded(mesh):
-        raise NotImplementedError(SPACE_MISSING.format(family))
 
 
 def nhwc(x: torch.Tensor) -> torch.Tensor:
@@ -70,8 +62,23 @@ def max_pool(x: torch.Tensor, kernel: int, stride: int, pad: int = 0,
     if not space_sharded(mesh):
         return nchw(max_pool_caffe(nhwc(x), kernel, stride, pad))
     x = halo_rows(x, pad, max(kernel - stride - pad, 0), mesh,
-                  fill=float("-inf") if pad else None)
+                  fill=float("-inf") if pad else None, bottom_edge=pad)
     return nchw(max_pool_caffe(nhwc(x), kernel, stride, (0, pad)))
+
+
+def max_pool_floor(x: torch.Tensor, kernel: int, stride: int, pad: int,
+                   mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """Floor-mode max pool with -inf padding on NCHW (Flax
+    ``nn.max_pool``, the ResNet stem's); float8 through bf16, which keeps
+    the max exact; on a row shard, with its halo (-inf past the frame)."""
+    if x.dtype == torch.float8_e5m2:
+        return max_pool_floor(x.to(torch.bfloat16), kernel, stride, pad,
+                              mesh).to(x.dtype)
+    if not space_sharded(mesh):
+        return F.max_pool2d(x, kernel, stride, pad)
+    x = halo_rows(x, pad, max(kernel - stride - pad, 0), mesh,
+                  fill=float("-inf"), bottom_edge=pad)
+    return F.max_pool2d(x, kernel, stride, (0, pad))
 
 
 def check_store_dtype(store_dtype) -> None:
@@ -82,20 +89,14 @@ def check_store_dtype(store_dtype) -> None:
                          f"{store_dtype}")
 
 
-def avg_pool(x: torch.Tensor, kernel: int, stride: int,
-             pad: int = 0) -> torch.Tensor:
-    """Caffe ceil-mode average pool on NCHW (float32 sums, Caffe's
-    divisor, the input dtype out)."""
-    return nchw(avg_pool_caffe(nhwc(x), kernel, stride, pad))
-
-
 def upsample_factor(x: torch.Tensor, factor: int,
                     mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Caffe FCN upsampling by ``factor`` on NCHW: the fixed bilinear
     deconvolution with k = 2f - f%2, s = f, p = ceil((f - 1) / 2), in its
     separable form; the input dtype out.  On a row shard: the input rows
-    with their halo (zeros past the frame) through the band of the global
-    row matrix that makes this rank's f x rows output rows."""
+    with their halo (zeros past the frame) through this rank's band of the
+    global row matrix, whose f x rows output rows read its input rows
+    through the same taps wherever the band starts."""
     kernel = 2 * factor - factor % 2
     pad = math.ceil((factor - 1) / 2.0)
     if not space_sharded(mesh):
@@ -103,15 +104,33 @@ def upsample_factor(x: torch.Tensor, factor: int,
     rows = x.shape[-2]
     # output row o reads input rows i with 0 <= o + pad - i f < kernel
     top, bottom = (kernel - 1 - pad) // factor, (factor - 1 + pad) // factor
-    first = mesh.space_index * rows
-    full = bilinear_upsample_matrix(rows * mesh.space, kernel, factor, pad)
-    band = np.zeros((full.shape[0], top + full.shape[1] + bottom), np.float32)
-    band[:, top:top + full.shape[1]] = full
-    band = band[first * factor:(first + rows) * factor,
-                first:first + top + rows + bottom]
+    # U[o, i] = v[o + pad - i f] depends on o - i f alone, so the band of
+    # the global matrix (rows f first.., columns first - top..) is the same
+    # for every first: the matrix of the halo'd band, from its row f top
+    band = bilinear_upsample_matrix(top + rows + bottom, kernel, factor,
+                                    pad)[factor * top:factor * (top + rows)]
     x = halo_rows(x, top, bottom, mesh, fill=0.0)
     return nchw(upsample_bilinear_separable(nhwc(x), kernel, factor, pad,
                                             uy=torch.from_numpy(band)))
+
+
+def upsample_rows(x: torch.Tensor, factor: int, rows: slice) -> torch.Tensor:
+    """``upsample_factor`` of a whole (replicated) small map, ``rows`` of
+    its output alone: the full input through those rows of the global row
+    matrix (a row-sharded rank's band of the upsampled map)."""
+    kernel = 2 * factor - factor % 2
+    pad = math.ceil((factor - 1) / 2.0)
+    uy = bilinear_upsample_matrix(x.shape[-2], kernel, factor, pad)[rows]
+    return nchw(upsample_bilinear_separable(nhwc(x), kernel, factor, pad,
+                                            uy=torch.from_numpy(uy)))
+
+
+def row_band(rows: int, mesh: Mesh) -> Tuple[int, int]:
+    """(offset, global rows) of this rank's ``rows`` rows of an activation
+    at one level of a row-sharded net (one all_gather of the bands'
+    lengths over the space group)."""
+    sizes = band_sizes(rows, mesh.space_group, mesh.device)
+    return sum(sizes[:mesh.space_index]), sum(sizes)
 
 
 class CaffeConv(nn.Conv2d):
@@ -151,7 +170,8 @@ class CaffeConv(nn.Conv2d):
                                       bias)
         (k, _), (s, _), (p, pw) = (self.kernel_size, self.stride,
                                    self.padding)
-        x = halo_rows(x.to(dtype), p, max(k - s - p, 0), mesh, fill=0.0)
+        x = halo_rows(x.to(dtype), p, max(k - s - p, 0), mesh, fill=0.0,
+                      bottom_edge=p)
         return F.conv2d(x, self.weight.to(dtype), bias, self.stride, (0, pw),
                         self.dilation, self.groups)
 
@@ -170,9 +190,19 @@ class Conv(CaffeConv):
 
 class GroupNorm(nn.GroupNorm):
     """Flax ``nn.GroupNorm(num_groups=32, dtype=float32)``: normalises in
-    float32 with Flax's epsilon 1e-6 and returns float32.  Its scale and
-    bias stay float32 when the model is cast to another dtype, as Flax
-    keeps them (``param_dtype`` float32)."""
+    float32 with Flax's epsilon 1e-6 and returns float32 (a float64 input,
+    under a float64 test policy, in float64).  Its scale and bias stay
+    float32 when the model is cast to another dtype, as Flax keeps them
+    (``param_dtype`` float32).
+
+    Each sample's and group's mean and variance are computed in float64.
+    On a row shard each band's sum and sum of squares (and count) are
+    summed over the space group and the variance is Flax's
+    ``use_fast_variance`` form, max(E[x^2] - E[x]^2, 0): so the statistics
+    of a band's rows and of the whole frame's agree to float64 rounding,
+    and a row-sharded net's bf16 layers downstream read what the unsharded
+    net's read (float32 statistics summed in two orders move some of their
+    roundings)."""
 
     def __init__(self, channels: int):
         super().__init__(32, channels, eps=1e-6)
@@ -182,9 +212,26 @@ class GroupNorm(nn.GroupNorm):
         device = fn(torch.empty(0)).device
         return super()._apply(lambda t: t.to(device), recurse)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.group_norm(x.to(torch.float32), self.num_groups,
-                            self.weight, self.bias, self.eps)
+    def forward(self, x: torch.Tensor,
+                mesh: Optional[Mesh] = None) -> torch.Tensor:
+        dtype = torch.promote_types(x.dtype, torch.float32)
+        b, c, h, w = x.shape
+        g = self.num_groups
+        wide = x.view(b, g, c // g, h, w).to(torch.float64)
+        var, mean = torch.var_mean(wide, (2, 3, 4), correction=0)
+        if space_sharded(mesh):
+            n = torch.full_like(mean, wide[0, 0].numel())
+            stats = all_reduce_sum(torch.stack(
+                [mean * n, (var + mean * mean) * n, n]), mesh.space_group)
+            mean = stats[0] / stats[2]
+            var = torch.clamp(stats[1] / stats[2] - mean * mean, min=0.0)
+        # per channel, (B, C, 1, 1): the output keeps x's memory format
+        mul = (torch.rsqrt(var + self.eps)[..., None]
+               * self.weight.view(g, -1)).view(b, c, 1, 1)
+        mean = mean[..., None].expand(b, g, c // g).reshape(b, c, 1, 1)
+        # a bf16 x widens in the subtraction, with no float32 copy of it
+        return torch.addcmul(self.bias.to(dtype)[:, None, None],
+                             x - mean.to(dtype), mul.to(dtype))
 
 
 class ZooModel(nn.Module):
@@ -246,11 +293,11 @@ def dropout(x: torch.Tensor, rate: float, training: bool,
         draws = torch.rand((b, h, w, c), generator=generator,
                            device=x.device)
     else:
-        draws = torch.rand((b * mesh.data, h * mesh.space, w, c),
+        first, rows = row_band(h, mesh) if space_sharded(mesh) else (0, h)
+        draws = torch.rand((b * mesh.data, rows, w, c),
                            generator=generator, device=x.device)
-        s = mesh.space_index if space_sharded(mesh) else 0
         draws = draws[mesh.data_index * b:(mesh.data_index + 1) * b,
-                      s * h:(s + 1) * h]
+                      first:first + h]
     keep = nchw(draws) >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
                                                            device=x.device))

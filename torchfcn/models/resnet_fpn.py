@@ -14,6 +14,12 @@ the cast to the compute dtype (the parameters').  With ``store_dtype``
 (float8_e5m2) the stem's output and every block's output are stored in it,
 after the GroupNorm statistics; convs read them widened to the compute
 dtype.  Dropout ("drop", rate 0.1) on P4 acts in train mode only.
+
+On a mesh with ``space > 1`` it runs row-sharded (``models/layers.py``):
+the stem conv reads 3 halo rows above and 2 below, the pool 1 above, each
+3x3 conv 1 above (and 1 below at stride 1); the 1x1 shortcuts and the
+nearest x2 of P5 need none, and each GroupNorm sums its statistics over
+the space group.
 """
 
 from __future__ import annotations
@@ -24,18 +30,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from torchfcn.core.mesh import Mesh
+from torchfcn.core.mesh import Mesh, check_band
 from torchfcn.models.layers import (
-    CaffeConv, Conv, GroupNorm, ZooModel, check_store_dtype, dropout, nchw,
-    nhwc, refuse_space)
-
-
-def _max_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
-    """3x3/2 max pool with padding 1 in floor mode (Flax ``nn.max_pool``);
-    float8 through bf16, which keeps the max exact."""
-    if x.dtype == torch.float8_e5m2:
-        return _max_pool_3x3_s2(x.to(torch.bfloat16)).to(x.dtype)
-    return F.max_pool2d(x, 3, 2, 1)
+    CaffeConv, Conv, GroupNorm, ZooModel, check_store_dtype, dropout,
+    max_pool_floor, nchw, nhwc)
 
 
 class BasicBlock(nn.Module):
@@ -56,12 +54,14 @@ class BasicBlock(nn.Module):
         else:
             self.down = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                mesh: Optional[Mesh] = None) -> torch.Tensor:
         dtype = self.conv1.dtype
         xc = x.to(dtype)
-        y = F.relu(self.gn1(self.conv1(xc))).to(dtype)
-        y = self.gn2(self.conv2(y))                        # float32
-        residual = x if self.down is None else self.gn_down(self.down(xc))
+        y = F.relu(self.gn1(self.conv1(xc, mesh), mesh)).to(dtype)
+        y = self.gn2(self.conv2(y, mesh), mesh)            # float32
+        residual = x if self.down is None \
+            else self.gn_down(self.down(xc), mesh)
         out = F.relu(y + residual.to(y.dtype)).to(dtype)
         return out if self.store_dtype is None else out.to(self.store_dtype)
 
@@ -74,6 +74,7 @@ class ResNetFPNDetectNet(ZooModel):
     """
 
     FLAX_NAMES = {"cvg": "cvg/classifier", "bbox": "bbox/regressor"}
+    row_stride = 32          # C5: the deepest stride
 
     def __init__(self, num_classes: int = 4,
                  stage_sizes: Sequence[int] = (2, 2, 2, 2),
@@ -108,23 +109,23 @@ class ResNetFPNDetectNet(ZooModel):
     def forward(self, frames: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
                 mesh: Optional[Mesh] = None) -> Dict[str, torch.Tensor]:
-        refuse_space(mesh, "ResNet-FPN")
+        check_band(frames.shape[1], mesh, self.row_stride)
         dtype = self.stem_conv.dtype
         x = nchw(((frames.to(torch.float32) - 127.0) / 128.0).to(dtype))
-        y = F.relu(self.stem_gn(self.stem_conv(x))).to(dtype)
+        y = F.relu(self.stem_gn(self.stem_conv(x, mesh), mesh)).to(dtype)
         if self.store_dtype is not None:
             y = y.to(self.store_dtype)
-        y = _max_pool_3x3_s2(y)                            # stride 4
+        y = max_pool_floor(y, 3, 2, 1, mesh)               # stride 4
         taps = []
         for names in self.stages:                          # C2 (s4) .. C5
             for name in names:
-                y = getattr(self, name)(y)
+                y = getattr(self, name)(y, mesh)
             taps.append(y)
         c4, c5 = taps[2], taps[3]
         # FPN top-down to P4 (stride 16): nearest x2 of P5
         p5 = nhwc(self.lat5(c5.to(dtype)))
         up5 = nchw(p5.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2))
-        p4 = F.relu(self.smooth4(self.lat4(c4.to(dtype)) + up5))
+        p4 = F.relu(self.smooth4(self.lat4(c4.to(dtype)) + up5, mesh))
         p4 = dropout(p4, self.dropout_rate, self.training, generator, mesh)
         coverage = torch.sigmoid(self.cvg(p4).float())
         bboxes = self.bbox(p4).float()

@@ -10,8 +10,14 @@
   up2, up4, up7], heads at stride 16.  conv5_3 has no ReLU in this net.
 
 Input: demeaned + min-max BGR in [0, 1] (``torchfcn.ops.image.demean_bgr``),
-NHWC.  Dropout ("dropout5", rate 0.5) before the heads acts in train mode
-only.  Compute runs in the convs' dtype.
+NHWC.  Dropout ("dropout5", rate 0.5) before the heads acts in train
+mode only.  Compute runs in the convs' dtype.
+
+On a mesh with ``space > 1`` both nets run row-sharded
+(``models/layers.py``): each rank's band of rows in and out.  The
+pyramid's pools read the whole conv4_3 map: each rank sums its rows of
+every window, the sums are summed over the space group, and each rank
+upsamples its rows of the bins x bins map (``pyramid_pool``).
 
 With ``store_dtype`` (float8_e5m2) the conv outputs of the backbone stages
 up to ``store_stages`` are stored in it; max pools run through bf16 and stay
@@ -24,14 +30,16 @@ from __future__ import annotations
 import math
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from torchfcn.core.mesh import Mesh, check_space_rows, space_sharded
+from torchfcn.core.mesh import Mesh, check_band, space_sharded
 from torchfcn.models.layers import (
-    CaffeConv, ZooModel, avg_pool, check_store_dtype, dropout, max_pool, nchw,
-    nhwc, refuse_space, upsample_factor)
+    CaffeConv, ZooModel, check_store_dtype, dropout, max_pool, nchw, nhwc,
+    row_band, upsample_factor, upsample_rows)
+from torchfcn.parallel.distributed import all_reduce_sum
 
 # VGG16 conv stack: (stage, n_convs, width)
 VGG_STAGES = ((1, 2, 64), (2, 2, 128), (3, 3, 256), (4, 3, 512), (5, 3, 512))
@@ -92,10 +100,34 @@ class _Heads(ZooModel):
                 "bboxes": nhwc(bboxes).contiguous()}
 
 
+def pyramid_pool(x: torch.Tensor, kernel: int, first: int, total: int):
+    """The Caffe ceil-mode ``kernel`` x ``kernel`` average pool (stride
+    ``kernel``, no padding) of an NCHW map of ``total`` rows, of which
+    ``x`` holds the rows from ``first`` on: -> (this band's share of every
+    window's sum, Caffe's divisor: the window's size clipped to the map),
+    both float64 (the sums exact for bf16 inputs).  The shares of every
+    band of the map add up to the whole map's sums."""
+    rows, cols = x.shape[-2:]
+
+    def windows(start, span, n):
+        """The (windows, span) 0/1 matrix whose entry (j, i) is 1 where
+        input row start + i lies in window j, and the windows' sizes."""
+        j = np.arange(-(-n // kernel))
+        return torch.from_numpy(
+            j[:, None] == (start + np.arange(span))[None, :] // kernel
+        ).to(x.device, torch.float64), np.minimum(j * kernel + kernel,
+                                                  n) - j * kernel
+
+    wy, ny = windows(first, rows, total)
+    wx, nx = windows(0, cols, cols)
+    sums = torch.einsum("jh,bchw,kw->bcjk", wy, x.to(torch.float64), wx)
+    return sums, torch.from_numpy(np.outer(ny, nx)).to(x.device,
+                                                       torch.float64)
+
+
 class VGGDetectNet(_Heads):
     """Reference bounding_box train net head (stride 8).  On a mesh with
-    ``space > 1`` it runs row-sharded (``models/layers.py``): each rank's
-    band of rows, a multiple of 16, in and out."""
+    ``space > 1`` it runs row-sharded (``models/layers.py``)."""
 
     row_stride = 16
 
@@ -112,8 +144,7 @@ class VGGDetectNet(_Heads):
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
                 mesh: Optional[Mesh] = None) -> Dict[str, torch.Tensor]:
-        if space_sharded(mesh):
-            check_space_rows(x.shape[1] * mesh.space, mesh, self.row_stride)
+        check_band(x.shape[1], mesh, self.row_stride)
         dtype = self.cvg.dtype
         y = self.backbone(nchw(x), mesh)["conv5_3"]        # stride 16
         y = upsample_factor(y.to(dtype), 2, mesh)          # stride 8
@@ -124,6 +155,8 @@ class VGGDetectNet(_Heads):
 class VGGPyramidDetectNet(_Heads):
     """Reference bounding_box deploy net with spatial pyramid pooling
     (stride 16).  The pyramid closes at 448x448 input (conv4_3 56x56)."""
+
+    row_stride = 16
 
     FLAX_NAMES = {**HEAD_NAMES, **{f"pyramid{b}": f"conv4_3/{b}x{b}"
                                    for b in PYRAMID_BINS}}
@@ -144,19 +177,25 @@ class VGGPyramidDetectNet(_Heads):
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
                 mesh: Optional[Mesh] = None) -> Dict[str, torch.Tensor]:
-        refuse_space(mesh, "VGG pyramid")
+        check_band(x.shape[1], mesh, self.row_stride)
         dtype = self.cvg.dtype
-        taps = self.backbone(nchw(x))
-        c43 = taps["conv4_3"]                          # stride 8
-        s = c43.shape[-2]
+        taps = self.backbone(nchw(x), mesh)
+        # the pools sum the compute dtype's values, exactly
+        c43 = taps["conv4_3"].to(dtype).to(torch.float64)  # stride 8
+        rows = c43.shape[-2]
+        # this band's first row and the whole map's rows
+        first, s = row_band(rows, mesh) if space_sharded(mesh) else (0, rows)
         half = s // 2                                  # the stride-16 grid
+        band = slice(first // 2, first // 2 + taps["conv5_3"].shape[-2])
         pyramid = []
         for bins in PYRAMID_BINS:
             k = math.ceil(s / bins)                    # adaptive pool kernel
-            # the average pool sums the compute dtype's values (in float32)
-            p = avg_pool(c43.to(dtype), k, k)          # (bins, bins)
+            sums, div = pyramid_pool(c43, k, first, s)
+            if space_sharded(mesh):
+                sums = all_reduce_sum(sums, mesh.space_group)
+            p = (sums / div).to(dtype)                 # (bins, bins)
             p = F.relu(getattr(self, f"pyramid{bins}")(p))
-            pyramid.append(upsample_factor(p, half // p.shape[-2]))
+            pyramid.append(upsample_rows(p, half // p.shape[-2], band))
         # one dtype for the concat: e5m2 when the whole backbone is stored
         # in it, else the compute dtype
         store = self.backbone.store_dtype

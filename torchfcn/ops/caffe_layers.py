@@ -13,7 +13,7 @@ the transposed conv itself, which the tests hold it against.
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Optional
 
 import numpy as np
 import torch
@@ -69,35 +69,6 @@ def max_pool_caffe(x: torch.Tensor, kernel: int, stride: int,
     y = F.max_pool2d(x.permute(0, 3, 1, 2), kernel, stride, pad,
                      ceil_mode=True)
     return y.permute(0, 2, 3, 1)
-
-
-def _ceil_pool_extra(n: int, kernel: int, stride: int,
-                     pad: int) -> Tuple[int, int]:
-    """(Caffe's pooled size, the zeros to add past ``n + pad`` so that a
-    floor-mode window yields it)."""
-    out = pooled_size(n, kernel, stride, pad)
-    return out, max((out - 1) * stride + kernel - n - 2 * pad, 0)
-
-
-def avg_pool_caffe(x: torch.Tensor, kernel: int, stride: int,
-                   pad: int = 0) -> torch.Tensor:
-    """Ceil-mode average pooling over NHWC with Caffe's AVE divisor: the
-    window clipped to ``in + pad`` (padded zeros count, the ceil slack past
-    them does not).  Sums in float32 and returns the input dtype."""
-    h, w = x.shape[-3], x.shape[-2]
-    oh, eh = _ceil_pool_extra(h, kernel, stride, pad)
-    ow, ew = _ceil_pool_extra(w, kernel, stride, pad)
-    xf = F.pad(x.to(torch.float32).permute(0, 3, 1, 2),
-               (pad, pad + ew, pad, pad + eh))
-    s = F.avg_pool2d(xf, kernel, stride, divisor_override=1)
-
-    def sizes(n, out_n):
-        starts = np.arange(out_n) * stride - pad
-        return np.minimum(starts + kernel, n + pad) - starts
-
-    div = torch.from_numpy((sizes(h, oh)[:, None] * sizes(w, ow)[None, :])
-                           .astype(np.float32)).to(x.device)
-    return (s / div).permute(0, 2, 3, 1).to(x.dtype)
 
 
 def _bilinear_taps(kernel: int) -> np.ndarray:

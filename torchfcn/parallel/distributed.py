@@ -8,13 +8,17 @@ on ``torch.distributed``: one process per rank.
   values broadcast to every rank), the right one for these ~10M-parameter
   convnets.
 * ``shard_batch`` / ``split_rows``: a rank's share of a global batch, its
-  batch shard and, under row sharding, its rows.
-* ``all_gather_cat``: the ranks' tensors of a group joined along one axis.
+  batch shard and, under row sharding, its band of rows
+  (``core.mesh.row_bands``).
+* ``all_gather_cat``: the ranks' tensors of a group joined along one axis;
+  ``all_gather_bands`` the same for bands of other lengths.
+* ``all_reduce_sum``: a sum over a group that autograd differentiates (the
+  row-sharded pyramid pools and GroupNorm statistics).
 * ``run_ranks``: run a function in N fresh processes joined by a group, and
   collect what each returns (the CPU tests, ``entry.dryrun_multichip``).
 
-The collectives move tensors as bytes (``all_gather_cat``) or as float32
-sums, which both NCCL and gloo carry on CUDA tensors.
+The collectives move tensors as bytes (``all_gather_cat``) or as float32,
+float64 sums, which both NCCL and gloo carry on CUDA tensors.
 """
 
 from __future__ import annotations
@@ -125,10 +129,56 @@ def all_gather_cat(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
                      dim=dim)
 
 
+def band_sizes(n: int, group, device) -> List[int]:
+    """Every rank's ``n`` in ``group``, in rank order (one all_gather of an
+    integer on ``device``)."""
+    return all_gather_cat(torch.tensor([n], device=device), group).tolist()
+
+
+def all_gather_bands(t: torch.Tensor, group, dim: int = 1) -> torch.Tensor:
+    """``all_gather_cat`` of bands whose lengths along ``dim`` differ
+    between the ranks: each padded to the longest, gathered, then
+    trimmed."""
+    sizes = band_sizes(t.shape[dim], group, t.device)
+    longest = max(sizes)
+    if t.shape[dim] < longest:
+        pad = list(t.shape)
+        pad[dim] = longest - t.shape[dim]
+        t = torch.cat([t, t.new_zeros(pad)], dim=dim)
+    parts = all_gather_cat(t, group, dim).split(longest, dim=dim)
+    return torch.cat([p.narrow(dim, 0, n) for p, n in zip(parts, sizes)],
+                     dim=dim)
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """y = the sum of every rank's x; each rank's y feeds its own part of a
+    loss that sums over the ranks, so dL/dx is the sum of every rank's
+    dL/dy: the backward all-reduces the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        y = x.clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``x`` over the ranks of ``group``, differentiable."""
+    return _AllReduceSum.apply(x, group)
+
+
 def batch_rows(mesh: Optional[Mesh], batch: int, rows: Optional[int] = None):
     """(batch slice, row slice) of this rank in a global batch of ``batch``
     images of ``rows`` rows; the row slice is the whole frame unless the
-    mesh shards rows.  Raises on a batch that does not divide."""
+    mesh shards rows, else this rank's band (``Mesh.band``).  Raises on a
+    batch that does not divide and on rows too few to split."""
     from torchfcn.core.mesh import local_batch
     if mesh is None:
         return slice(0, batch), slice(None)
@@ -136,14 +186,13 @@ def batch_rows(mesh: Optional[Mesh], batch: int, rows: Optional[int] = None):
     bs = slice(mesh.data_index * b, (mesh.data_index + 1) * b)
     if not space_sharded(mesh) or rows is None:
         return bs, slice(None)
-    r = rows // mesh.space
-    return bs, slice(mesh.space_index * r, (mesh.space_index + 1) * r)
+    offset, n = mesh.band(rows)
+    return bs, slice(offset, offset + n)
 
 
 def split_rows(frames, mesh: Optional[Mesh]):
     """This rank's share of a global (B, H, ...) frame batch: its batch
-    shard and, under row sharding, its rows of each frame (the input
-    sharding of the JAX package's ``spatial_infer_sharding``)."""
+    shard and, under row sharding, its band of each frame's rows."""
     bs, rs = batch_rows(mesh, frames.shape[0], frames.shape[1])
     return frames[bs, rs]
 

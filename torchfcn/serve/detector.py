@@ -12,12 +12,13 @@ CUDA device and their plain versions on the CPU.
 On a (data, space) mesh (``Detector(mesh=...)``, one process per rank,
 ``torchfcn.core.mesh``) every rank is given the global frame batch and moves
 only its share to its device: its batch shard (``data``) and, with
-``space > 1``, its band of each frame's rows.  Each rank runs the forward on
-its share (row-sharded with halo exchange), the stride-16 heads are gathered
-within the space group, decode, top-K and groupRectangles run per data
-shard (every space rank of a shard repeats them, as the JAX package's
-shard_map does), and the data shards' results are gathered, so that every
-rank returns the global ``DetectionResult``.
+``space > 1``, its band of each frame's rows (``core.mesh.row_bands``,
+bands of other lengths where the rows do not split evenly).  Each rank runs
+the forward on its share (row-sharded with halo exchange), the heads' bands
+are gathered within the space group, decode, top-K and groupRectangles run
+per data shard (every space rank of a shard repeats them, as the JAX
+package's shard_map does), and the data shards' results are gathered, so
+that every rank returns the global ``DetectionResult``.
 """
 
 from __future__ import annotations
@@ -32,8 +33,7 @@ from torchfcn.convert import resolve_weights
 from torchfcn.core.config import DetectorConfig
 from torchfcn.core.device import port_device
 from torchfcn.core.dtypes import DTypePolicy
-from torchfcn.core.mesh import (
-    DATA_AXIS, SPACE_AXIS, Mesh, check_space_rows, space_sharded)
+from torchfcn.core.mesh import DATA_AXIS, SPACE_AXIS, Mesh, space_sharded
 from torchfcn.models import build as build_model, get_spec
 from torchfcn.ops.grid_codec import decode_gridboxes
 from torchfcn.ops.group_rects import vote_boxes_batched
@@ -145,9 +145,10 @@ class Detector:
     ``mesh``: a ``torchfcn.core.mesh.Mesh``; every rank builds the Detector
     and calls it with the same global batch, a multiple of ``data``.  The
     model runs on the mesh's device (``device`` is not read), with rank
-    0's parameters broadcast to every rank.  ``space > 1`` shards rows for
-    the GoogLeNet and VGG DetectNets (other families raise); the net's
-    rows must divide by space x 16.
+    0's parameters broadcast to every rank.  ``space > 1`` shards the
+    rows of every detection family's net (``core.mesh.row_bands``: each
+    band but the last a multiple of 32 rows, the last the remainder; it
+    raises for fewer than space x 32 rows, the last 32 may be partial).
     """
 
     def __init__(self,
@@ -221,22 +222,24 @@ class Detector:
                torch.func.functional_call(self.model, params, (x,), kw))
         coverage, bboxes = out["coverage"], out["bboxes"]
         if space_sharded(mesh):
-            from torchfcn.parallel.distributed import all_gather_cat
-            coverage = all_gather_cat(coverage, mesh.space_group, dim=1)
-            bboxes = all_gather_cat(bboxes, mesh.space_group, dim=1)
+            # both heads' bands in one gather
+            from torchfcn.parallel.distributed import all_gather_bands
+            both = all_gather_bands(torch.cat([coverage, bboxes], dim=-1),
+                                    mesh.space_group, dim=1)
+            coverage, bboxes = both.split([coverage.shape[-1],
+                                           bboxes.shape[-1]], dim=-1)
         return coverage, bboxes
 
     def _rows(self, rows: int) -> slice:
-        r = rows // self.mesh.space
-        return slice(self.mesh.space_index * r,
-                     (self.mesh.space_index + 1) * r)
+        offset, n = self.mesh.band(rows)
+        return slice(offset, offset + n)
 
     def _share(self, frames: torch.Tensor):
         """(this rank's share of the global batch ``frames`` on its device,
         whether it is a band of rows): the batch shard and, under row
         sharding, its rows of frames at the net's size (frames of another
         size move whole, to be resized first).  Raises on a batch the data
-        axis does not divide, and on rows that do not split."""
+        axis does not divide, and on rows too few to split."""
         mesh = self.mesh
         n = mesh.shape[DATA_AXIS]
         if frames.shape[0] % n:
@@ -248,10 +251,9 @@ class Detector:
         net_hw = (self.grid.im_height, self.grid.im_width)
         banded = space_sharded(mesh) and tuple(frames.shape[1:3]) == net_hw
         if space_sharded(mesh):
-            check_space_rows(net_hw[0], mesh,
-                             getattr(self.model, "row_stride", 1))
-        if banded:
-            frames = frames[:, self._rows(net_hw[0])]
+            rows = self._rows(net_hw[0])   # raises on rows too few to split
+            if banded:
+                frames = frames[:, rows]
         return frames.to(self.device), banded
 
     def _pipeline(self, frames: torch.Tensor,

@@ -16,8 +16,11 @@ GoogLeNet stem.
 On a (data, space) mesh (``torchfcn.core.mesh``, one process per rank;
 ``tpufcn/train/step.py:82-88,182-228``) each rank holds a replica of the
 model and its share of the batch: its batch shard and, with ``space > 1``,
-its band of the image and seg rows.  The losses divide by the local batch
-(Caffe's normalisations), so after the local backward the gradients are
+its band of the image and seg rows (``core.mesh.row_bands``) and the grid
+labels of the same band.  Every loss term is a sum over cells or pixels
+divided by the batch shard's size (Caffe's normalisations, the global
+counts of a data shard whatever its bands), so the space ranks' losses add
+up to their shard's loss; after the local backward the gradients are
 summed over the mesh and divided by ``data``: the gradient of the global
 batch's loss, once per update (after ``iter_size`` micro-batches).  The
 metrics are reduced the same way (counts are summed).  Dropout draws the
@@ -128,7 +131,8 @@ def make_loss_fn(cfg: TrainConfig, with_seg: bool = False,
     j's coverage and bbox supervision lands on channel j + 1, the channel
     the seg softmax supervises as class j + 1 (the reference's one-based
     manifest labels).  On a mesh the batch is this rank's share and the
-    loss its part: the grid labels of its band of grid rows."""
+    loss its part: the grid labels of its band of grid rows, and its band
+    of the seg masks (``shard_batch`` sliced them)."""
     grid = cfg.grid
     kw = {} if mesh is None else {"mesh": mesh}
 
@@ -142,8 +146,10 @@ def make_loss_fn(cfg: TrainConfig, with_seg: bool = False,
             batch["rects"], batch["labels"] + label_offset, batch["valid"],
             grid)
         if space_sharded(mesh):
-            r = grid.grid_h // mesh.space
-            band = slice(mesh.space_index * r, (mesh.space_index + 1) * r)
+            # the frame's band of rows, in grid rows (offsets divide)
+            offset, rows = mesh.band(grid.im_height)
+            band = slice(offset // grid.stride,
+                         -(-(offset + rows) // grid.stride))
             labels = GridLabels(*(t[:, band] for t in labels))
         if with_seg and "seg" not in batch:
             raise ValueError(
