@@ -205,14 +205,35 @@ plain versions are full float32.
    forward with the port's GroupNorm against F.group_norm. Prints the halo
    exchange's share of a row-sharded Detector call, and the step time of
    the one process, of the NCCL 1 x 1 mesh and of 2 gloo ranks, beside the
-   card's name and power limit.
+   card's name and power limit;
+13. records: the record and VOC data path (``torchfcn.data.jpeg``,
+   ``records``, ``voc``, ``RecordTrainPipeline``), without cv2. The 144
+   JPEGs of ``tests/fixtures/voc_mini`` decoded by the port's codec, their
+   pixels' digest equal to cv2's (FIXTURE_DECODE_SHA256), re-encoded at
+   quality 95 byte-equal to cv2 (FIXTURE_ENCODE_SHA256) and decoded again,
+   the host's milliseconds per image of each; the CLI chain in this
+   process: ``voc`` (48 / 96 samples), ``records --format voc`` of both
+   splits, ``records --inspect``, ``train --recipe bounding_box --records``
+   (B = 32, 224x224, RECORDS_TRAIN_STEPS steps) on the card with one
+   validation on ``--val-records`` (groupRectangles twice), ``eval
+   --format voc`` of the 96 val images from the snapshot (groupRectangles
+   once an image); then ``voc_fixture_gate`` at its capture configuration
+   (vgg_detectnet_train 224x224 B = 16, VOC_GATE_STEPS steps from a cache
+   of 10 record batches, Adam lr 1e-4; 96 val images at 448x448 with 168
+   boxes): its mAP above VOC_MAP_LIMIT and the untrained net's below it,
+   groupRectangles once a scoring chunk of 8 and held against its plain
+   version on the trained net's first chunk, exactly, and timed there; the
+   gate's training step profiled (device busy against the wall per step).
 
 Then one JSON line of the stream phase's numbers, one of the families'
-numbers, one of the training runs' numbers, one of the data phase's, one of the gates', one of the mesh phase's, one JSON line of
-per-kernel numbers (with each kernel's launches per dispatch of the
-stream graphs, per training step, per step fed by the compositor, per validation, per gate training step and
-per gate scoring, per rank in each run of the mesh phase; the stem tail on
-halo rows as a row of its own), each kernel's time beside its
+numbers, one of the training runs' numbers, one of the data phase's, one
+of the gates', one of the mesh phase's, one of the records phase's, one
+JSON line of per-kernel numbers (with each kernel's launches per dispatch
+of the stream graphs, per training step, per step fed by the compositor,
+per validation, per gate training step and per gate scoring, per rank in
+each run of the mesh phase, in the records chain's training and eval and
+per voc_fixture scoring; the stem tail on halo rows as a row of its own),
+each kernel's time beside its
 bound (``bound_ms``: the larger of the bytes it must move over 3.35 TB/s
 and its operations over the peak rate of their type, 989 TFLOP/s on the
 bf16 tensor cores, 67 TFLOP/s in float32, or 4.18e12/s on the special-
@@ -3979,6 +4000,258 @@ def phase_mesh(rng, counters, card: str) -> dict:
     return out
 
 
+# --- 13. records: the record and VOC data path, the voc_fixture gate ---
+
+REPO_ROOT = os.path.dirname(os.path.abspath(__file__))
+VOC_FIXTURE = os.path.join(REPO_ROOT, "tests", "fixtures", "voc_mini")
+# sha256 over the 144 fixture JPEGs' pixels as cv.imdecode(IMREAD_COLOR)
+# gives them (in file-name order), and over cv.imencode(".jpg", pixels,
+# quality 95) of each: printed by tests/test_torch_jpeg.py from cv2
+FIXTURE_DECODE_SHA256 = \
+    "01f3a1e3e21a5a8322e8086fc65c18aa1a9a85f30b461a4e7d1b24ed7a9e3764"
+FIXTURE_ENCODE_SHA256 = \
+    "f04a407e06e30dc9cde0342011271e2321c0e449292d87f6b08caf65cf738738"
+VOC_TRAIN, VOC_VAL, VOC_VAL_BOXES = 48, 96, 168
+RECORDS_TRAIN_STEPS = 20
+# the voc_fixture gate's held-out mAP after its capture configuration must
+# pass this, the untrained net's must not: below the card's readings
+# (0.3838 in two runs, the untrained net 0.0; NVIDIA H100 80GB HBM3,
+# 700.00 W)
+VOC_MAP_LIMIT = 0.25
+# the gate's steps in this script: its capture configuration's
+VOC_GATE_STEPS = 3000
+
+
+def fixture_codec(card: str) -> dict:
+    """The fixture's 144 JPEGs decoded by the port, held against cv2's
+    digest; the pixels re-encoded at quality 95, held against cv2's digest
+    of its encodes, and decoded again; seconds per image of each."""
+    import glob
+    import hashlib
+
+    from torchfcn.data import jpeg
+    files = sorted(glob.glob(os.path.join(VOC_FIXTURE, "JPEGImages",
+                                          "*.jpg")))
+    if len(files) != VOC_TRAIN + VOC_VAL:
+        raise AssertionError(f"records: {len(files)} fixture JPEGs, not "
+                             f"{VOC_TRAIN + VOC_VAL}")
+    raw = [open(f, "rb").read() for f in files]
+    jpeg.decode(raw[0])                    # the entropy coder's build
+    t = time.perf_counter()
+    images = [jpeg.decode(b, f) for b, f in zip(raw, files)]
+    decode_s = (time.perf_counter() - t) / len(files)
+    t = time.perf_counter()
+    encoded = [jpeg.encode(img, 95) for img in images]
+    encode_s = (time.perf_counter() - t) / len(files)
+    again = [jpeg.decode(b) for b in encoded]
+    got = hashlib.sha256(b"".join(img.tobytes() for img in images))
+    enc = hashlib.sha256(b"".join(encoded))
+    if got.hexdigest() != FIXTURE_DECODE_SHA256:
+        raise AssertionError("records: the decoded fixture's digest "
+                             f"{got.hexdigest()} is not cv2's")
+    if enc.hexdigest() != FIXTURE_ENCODE_SHA256:
+        raise AssertionError("records: the re-encoded fixture's digest "
+                             f"{enc.hexdigest()} is not cv2's")
+    drift = max(float(np.abs(a.astype(np.int16) - b).mean())
+                for a, b in zip(images, again))
+    if drift > 2.0:
+        raise AssertionError(f"records: a q95 round trip moves pixels by "
+                             f"{drift:.3f} on average")
+    log("records", f"{len(files)} fixture JPEGs of 320x240 decoded bit-equal "
+        f"to cv2 (digest), re-encoded byte-equal to cv2 at q95 (digest), "
+        f"decoded again within {drift:.3f} on average: decode "
+        f"{1e3 * decode_s:.2f} ms, encode {1e3 * encode_s:.2f} ms per image "
+        f"on the host; on {card}")
+    return dict(images=len(files), decode_ms=1e3 * decode_s,
+                encode_ms=1e3 * encode_s, round_trip_mean_abs=drift)
+
+
+def cli_json(argv: list) -> list:
+    """``torchfcn.cli.main(argv)`` in this process; its stdout's lines."""
+    import io
+
+    from torchfcn import cli
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cli.main(argv)
+    return out.getvalue().splitlines()
+
+
+def records_chain(counters, card: str) -> dict:
+    """The CLI chain voc -> records (train and val splits) -> records
+    --inspect -> train --records on the card with --val-records -> eval
+    --format voc, groupRectangles counted in training and in eval."""
+    import tempfile
+    work = tempfile.mkdtemp(prefix="torchfcn_records_")
+    man, rec, val = (os.path.join(work, d) for d in ("man", "rec/ds",
+                                                      "rec/val"))
+    t = time.perf_counter()
+    cli_json(["voc", VOC_FIXTURE, "--out", man, "--classes", "ball", "crate",
+              "cone"])
+    lines = {split: open(os.path.join(man, f"{split}.txt")).read()
+             .splitlines() for split in ("train", "val")}
+    if (len(lines["train"]), len(lines["val"])) != (VOC_TRAIN, VOC_VAL):
+        raise AssertionError(f"records: the VOC converter wrote "
+                             f"{len(lines['train'])} / {len(lines['val'])} "
+                             f"samples, not {VOC_TRAIN} / {VOC_VAL}")
+    for prefix, split in ((rec, "train"), (val, "val")):
+        cli_json(["records", "--manifest", os.path.join(man, f"{split}.txt"),
+                  "--format", "voc", "--out", prefix])
+    inspect = [json.loads(l) for l in cli_json(
+        ["records", "--inspect", "--limit", "2", "--out", rec])]
+    if inspect[-1]["records"] != VOC_TRAIN or not all(
+            l["labels"] and l["image"] == [240, 320, 3]
+            for l in inspect[:-1]):
+        raise AssertionError(f"records: --inspect read {inspect}")
+    convert_s = time.perf_counter() - t
+    snap = os.path.join(work, "snap")
+    for c in counters.values():
+        c.launches = 0
+    t = time.perf_counter()
+    trained = json.loads(cli_json(
+        ["train", "--recipe", "bounding_box", "--records", rec,
+         "--max-iter", str(RECORDS_TRAIN_STEPS), "--snapshot-dir", snap,
+         "--eval-every", str(RECORDS_TRAIN_STEPS), "--val-records", val,
+         "--device", "cuda"])[-1])
+    train_s = time.perf_counter() - t
+    train_launches = {k: c.launches for k, c in counters.items()}
+    if trained["trained_to"] != RECORDS_TRAIN_STEPS or trained["best"] is None:
+        raise AssertionError(f"records: train --records gave {trained}")
+    # one validation of 64 held-out records in chunks of 32
+    if train_launches["group_rects"] != 2:
+        raise AssertionError(f"records: groupRectangles launched "
+                             f"{train_launches['group_rects']} times in one "
+                             f"validation of 2 chunks")
+    for c in counters.values():
+        c.launches = 0
+    t = time.perf_counter()
+    res = json.loads(cli_json(
+        ["eval", "--manifest", os.path.join(man, "val.txt"), "--format",
+         "voc", "--model", "vgg_detectnet_train", "--weights", snap,
+         "--device", "cuda"])[-1])
+    eval_s = time.perf_counter() - t
+    eval_launches = {k: c.launches for k, c in counters.items()}
+    if res["images"] != VOC_VAL or set(res["ap"]) != {"0", "1", "2"} or \
+            not 0.0 <= res["mAP"] <= 1.0:
+        raise AssertionError(f"records: eval gave {res}")
+    if eval_launches["group_rects"] != VOC_VAL:
+        raise AssertionError(f"records: groupRectangles launched "
+                             f"{eval_launches['group_rects']} times over "
+                             f"{VOC_VAL} images, not once an image")
+    log("records", f"CLI chain: voc -> records ({VOC_TRAIN} + {VOC_VAL}) -> "
+        f"--inspect in {convert_s:.2f} s; train --records bounding_box "
+        f"B=32 224x224 {RECORDS_TRAIN_STEPS} steps with --val-records in "
+        f"{train_s:.2f} s (val mAP {trained['best']['score']}); eval --format "
+        f"voc of {res['images']} images in {eval_s:.2f} s: mAP {res['mAP']}; "
+        f"launches in training {train_launches}, in eval {eval_launches}; "
+        f"on {card}")
+    return dict(convert_s=convert_s, train_s=train_s, eval_s=eval_s,
+                val_mAP=trained["best"]["score"], eval=res,
+                train_launches=train_launches, eval_launches=eval_launches)
+
+
+def voc_step_profile(work: str) -> float:
+    """The VOC gate's Trainer (seed 0) on GATE_PROFILED_STEPS record batches
+    under torch.profiler, after as many warm-up steps: device busy ms per
+    step."""
+    from torchfcn.data.pipeline import RecordTrainPipeline
+    from torchfcn.train import gates
+    trainer = gates.voc_trainer(work, steps=VOC_GATE_STEPS, batch=16,
+                                lr=1e-4, seed=0, device="cuda")
+    pipe = iter(RecordTrainPipeline(os.path.join(work, "rec", "ds"),
+                                    gates.VOC_GRID, batch_size=16, seed=1000))
+    state = trainer.init_state()
+    batches = [trainer.put(next(pipe))
+               for _ in range(2 * GATE_PROFILED_STEPS)]
+    for b in batches[:GATE_PROFILED_STEPS]:
+        state, _ = trainer.step_fn(state, b)
+    torch.cuda.synchronize()
+
+    def profiled():
+        nonlocal state
+        for b in batches[GATE_PROFILED_STEPS:]:
+            state, _ = trainer.step_fn(state, b)
+
+    _, rows = device_profile(profiled, "records: voc_fixture gate step")
+    return sum(us for _, us, _ in rows) / 1e3 / GATE_PROFILED_STEPS
+
+
+def phase_records(counters, card: str) -> dict:
+    """The record and VOC data path on the card; returns its readings."""
+    import tempfile
+
+    from torchfcn.serve import detector as detector_module
+    from torchfcn.train import gates
+    t_phase = time.perf_counter()
+    codec = fixture_codec(card)
+    chain = records_chain(counters, card)
+
+    # the voc_fixture gate at its capture configuration, each scoring
+    # counted, the NMS inputs of the first scoring chunk recorded
+    work = tempfile.mkdtemp(prefix="torchfcn_vocgate_")
+    scorings, nms = [], []
+    t = time.perf_counter()
+    with counted_calls(gates, "score_voc", counters, scorings), \
+            recorded_calls(detector_module, "vote_boxes_batched", nms,
+                           limit=1):
+        res = gates.voc_fixture_gate(steps=VOC_GATE_STEPS, work_root=work,
+                                     device="cuda")
+    wall = time.perf_counter() - t
+    if (res["val_images"], res["n_gt"]) != (VOC_VAL, VOC_VAL_BOXES):
+        raise AssertionError(f"records: the gate scored {res['val_images']} "
+                             f"images with {res['n_gt']} boxes, not "
+                             f"{VOC_VAL} with {VOC_VAL_BOXES}")
+    chunks = -(-VOC_VAL // 8)
+    if scorings[0]["group_rects"] != chunks:
+        raise AssertionError(f"records: groupRectangles launched "
+                             f"{scorings[0]['group_rects']} times in the "
+                             f"gate's {chunks} scoring chunks")
+    first = nms[0]
+    rects = first["propose_boxes"].float().contiguous().clone()
+    valid = first["valid"].contiguous().clone()
+    against_plain = dict(shape=list(rects.shape), valid_candidates=int(
+        valid.sum()), **check_group_rects(
+            rects, valid, f"the trained voc_fixture net's first scoring chunk "
+            f"({int(valid.sum())} valid candidates)",
+            group_threshold=first["group_threshold"], eps=first["eps"]))
+    # the control: the gate's net untrained (its Trainer's seeded init),
+    # scored on the same held-out set
+    from torchfcn.train.validate import val_set_from_voc
+    trainer = gates.voc_trainer(work, steps=VOC_GATE_STEPS, batch=16,
+                                lr=1e-4, seed=0, device="cuda")
+    vi, vg = val_set_from_voc(os.path.join(work, "man", "val.txt"),
+                              gates.VOC_EVAL_HW)
+    control = gates.score_voc(trainer, trainer.init_state(), vi, vg)
+    busy = voc_step_profile(work)
+    step_ms = 1e3 * res["train_s"] / VOC_GATE_STEPS
+    res.update(steps=VOC_GATE_STEPS, wall_s=wall, step0_mAP=control["mAP"],
+               step0_n_det=control["n_det"], scoring_launches=scorings[0],
+               scoring_chunks=chunks, against_plain=against_plain,
+               steps_s=VOC_GATE_STEPS / res["train_s"], step_ms=step_ms,
+               busy_ms_step=busy, idle_share=1 - busy / step_ms)
+    log("records", f"voc_fixture gate, vgg_detectnet_train 224x224 B=16, "
+        f"{VOC_GATE_STEPS} steps from a cache of 10 record batches, Adam lr "
+        f"1e-4: mAP {res['mAP']} ({res['n_det']} detections) on "
+        f"{res['val_images']} val images at 448x448 ({res['n_gt']} boxes), "
+        f"step 0 {control['mAP']} ({control['n_det']} detections); limit "
+        f"{VOC_MAP_LIMIT}; convert {res['convert_s']} s, compose "
+        f"{res['compose_s']} s, train {res['train_s']} s "
+        f"({res['steps_s']:.2f} steps/s, {step_ms:.2f} ms a step, of which "
+        f"the device is busy {busy:.3f} ms by torch.profiler over "
+        f"{GATE_PROFILED_STEPS} steps: idle {100 * res['idle_share']:.1f} "
+        f"%), eval {res['eval_s']} s; "
+        f"groupRectangles {scorings[0]['group_rects']} launches in "
+        f"{chunks} scoring chunks; on {card}")
+    if not control["mAP"] < VOC_MAP_LIMIT < res["mAP"]:
+        raise AssertionError(
+            f"records: mAP {control['mAP']} at step 0 and {res['mAP']} "
+            f"trained do not straddle the limit {VOC_MAP_LIMIT}")
+    seconds = time.perf_counter() - t_phase
+    log("records", f"phase took {seconds:.1f} s")
+    return dict(codec=codec, chain=chain, gate=res,
+                limits=dict(mAP=VOC_MAP_LIMIT), seconds=seconds)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4022,6 +4295,7 @@ def main() -> int:
     data = phase_data(counters, card)
     gate = phase_gates(counters, card)
     mesh = phase_mesh(rng, counters, card)
+    records = phase_records(counters, card)
 
     meta = {
         "group_rects": ("torchfcn/csrc/group_rects.cu",
@@ -4052,7 +4326,18 @@ def main() -> int:
                         gate["detection"]["scoring_launches"].items()},
                     mesh_launches_per_rank=mesh_launches(mesh, name),
                     mesh_max_abs_err=mesh_plain_err(mesh, name),
+                    records_train_launches=records["chain"][
+                        "train_launches"][name],
+                    records_eval_launches=records["chain"][
+                        "eval_launches"][name],
+                    voc_gate_scoring_launches=records["gate"][
+                        "scoring_launches"][name],
                     **rows[name]) for name in counters]
+    rows_voc = records["gate"]["against_plain"]
+    next(k for k in kernels if k["name"] == "group_rects")["voc_gate"] = {
+        k: rows_voc[k] for k in (
+        "shape", "valid_candidates", "max_abs_err", "ms", "call_ms",
+        "plain_ms", "bound_ms", "bound_by")}
     halo = mesh["stem_tail_halo"]
     kernels.append(dict(
         name="stem_tail_halo", route="cuda", source=meta["stem_tail"][0],
@@ -4065,6 +4350,7 @@ def main() -> int:
     print(json.dumps({"card": card, "data": data}), flush=True)
     print(json.dumps({"card": card, "gates": gate}), flush=True)
     print(json.dumps({"card": card, "mesh": mesh}), flush=True)
+    print(json.dumps({"card": card, "records": records}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

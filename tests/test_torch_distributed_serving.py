@@ -251,7 +251,7 @@ def cli_args(cli, argv):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--records", "r"], "record and VOC data"),
+    (["--records", "r", "--workers", "2"], "record and VOC data"),
     (["--manifest", "m", "--workers", "2"], "host compositor"),
     (["--manifest", "m"], "host compositor"),
     (["--manifest", "m", "--device-data", "--inspect-data", "d"], "viz.py"),

@@ -1,13 +1,13 @@
 """The port's accuracy gates (``torchfcn/train/gates.py``) and CLI
 (``torchfcn/cli.py``) against tpufcn's.
 
-* ``bench_gate_configs``: both tiers equal to tpufcn's but for its
-  ``voc_fixture`` entry (not ported), the dtype objects (``torch``'s e5m2
-  for ``jnp``'s) and the estimates (the card's walls);
+* ``bench_gate_configs``: both tiers equal to tpufcn's, ``voc_fixture``
+  entry included, but for the dtype objects (``torch``'s e5m2 for
+  ``jnp``'s) and the estimates (the card's walls);
 * the scheduler (``plan_gate_units``, ``_merge_family``,
-  ``run_bench_gates`` budgets, passes and pretrain hand-over,
-  ``warm_gate_caches``, ``_unit_cold``): tpufcn's scheduler tests
-  (``tests/test_hardbench.py``) held by the port's module;
+  ``run_bench_gates`` budgets, passes and pretrain hand-over, the voc kind
+  run once, ``warm_gate_caches``, ``_unit_cold``): tpufcn's scheduler
+  tests (``tests/test_hardbench.py``) held by the port's module;
 * ``_score_detector``: tpufcn's mAP and detection count on the same carried
   parameters and images (bf16 Detectors at max_candidates=128,
   vgg_detectnet_train with its grid at 64x64 on both sides, heads biased so
@@ -64,7 +64,7 @@ def _comparable(cfgs, e5m2):
 @pytest.mark.parametrize("tier", ["bench", "full"])
 def test_bench_gate_configs_equal_jax_but_voc(tier):
     want = jgates.bench_gate_configs(tier)
-    assert want.pop("voc_fixture")["kind"] == "voc"
+    assert want["voc_fixture"]["kind"] == "voc"
     got = gates.bench_gate_configs(tier)
     assert list(got) == list(want)
     assert _comparable(got, torch.float8_e5m2) == \
@@ -207,21 +207,32 @@ def test_run_bench_gates_adaptive_degradation(monkeypatch, tmp_path):
 
 
 def test_failed_unit_and_unported_kind_report_errors(monkeypatch, tmp_path):
-    cfgs = {"voc": dict(kind="voc", est_s=1),
+    cfgs = {"host": dict(kind="host", est_s=1),
+            "voc": dict(kind="voc", est_s=1, steps=7),
             "det": dict(kind="detection", model="m", seeds=(0, 1),
                         est_s=1)}
+    voc_calls = []
 
     def broken(model, root, seeds, log, **kw):
         raise RuntimeError("boom")
 
+    def voc(**kw):
+        voc_calls.append(kw)
+        return {"mAP": 0.25, "n_det": 3, "val_images": 96, "n_gt": 168}
+
     monkeypatch.setattr(gates, "bench_gate_configs",
                         lambda tier="bench": cfgs)
     monkeypatch.setattr(gates, "detection_gate", broken)
+    monkeypatch.setattr(gates, "voc_fixture_gate", voc)
     monkeypatch.setattr(gates, "_unit_cold", lambda *a: False)
-    out = gates.run_bench_gates(root=str(tmp_path), log=lambda m: None)
-    assert out["voc"]["error"].startswith("NotImplementedError")
+    out = gates.run_bench_gates(root=str(tmp_path), log=lambda m: None,
+                                device="cpu")
+    assert out["host"]["error"].startswith("NotImplementedError")
     assert out["det"]["error"] == "RuntimeError: boom"
     assert set(out["det"]) == {"error", "wall_s"}
+    # the voc kind is one unit, given the entry's arguments and the device
+    assert voc_calls == [{"steps": 7, "device": "cpu"}]
+    assert out["voc"]["mAP"] == 0.25 and "wall_s" in out["voc"]
 
 
 def test_pretrain_path_resolves_across_invocations(monkeypatch, tmp_path):
@@ -449,4 +460,6 @@ def test_cli_prints_one_json_line(monkeypatch, capsys):
     assert json.loads(out[-1]) == {"fcn32s": {"exact": {"mIoU": 0.5}}}
     assert seen["only"] == ["fcn32s"] and seen["device"] == "cpu"
     with pytest.raises(SystemExit):
-        cli.main(["gates", "--family", "voc_fixture"])
+        cli.main(["gates", "--family", "voc_fixtures"])
+    cli.main(["gates", "--family", "voc_fixture", "--device", "cpu"])
+    assert seen["only"] == ["voc_fixture"]

@@ -2,7 +2,8 @@
 the reader bit-equal to ``cv.imread`` on PNGs that cv2 wrote (gray, BGR
 and BGRA, each of the five row filters and cv2's adaptive choice), cv2
 reading the writer's files back exactly (every filter), and every other
-file raising ``ValueError`` that names it."""
+file (a progressive JPEG among them; baseline JPEGs are read, see
+``tests/test_torch_jpeg.py``) raising ``ValueError`` that names it."""
 
 import os
 import struct
@@ -76,8 +77,8 @@ def test_other_files_raise_naming_the_file(tmp_path):
     img = _image((9, 11, 3), 0)
     cases = {}
     p = str(tmp_path / "x.jpg")
-    cv.imwrite(p, img)
-    cases["jpeg"] = p
+    cv.imwrite(p, img, [cv.IMWRITE_JPEG_PROGRESSIVE, 1])
+    cases["progressive jpeg"] = p
     p = str(tmp_path / "x16.png")
     cv.imwrite(p, img.astype(np.uint16) * 257)
     cases["16-bit"] = p

@@ -1,7 +1,7 @@
 """Command-line interface of the port (``tpufcn/cli.py``), with the JAX
 package's flags plus ``--device``.  Subcommands so far:
 
-  detect    run the detector over image files (8-bit PNG)
+  detect    run the detector over image files (baseline JPEG, 8-bit PNG)
   replay    stream frame files through the detector node
             (``--micro-batch``: the batched throughput mode)
   launch    build a node graph from a JSON launch spec and stream frames
@@ -12,20 +12,35 @@ package's flags plus ``--device``.  Subcommands so far:
   pointmap  build the C++ point-map library
   gates     the tracked accuracy gates
   pretrain  the VGG16 backbone pretrain
-  train     train a recipe from scenes composed on the device
-            (``--manifest`` with ``--device-data``)
+  train     train a recipe from record shards (``--records``) or from
+            scenes composed on the device (``--manifest`` with
+            ``--device-data``)
+  records   build record shards from a manifest, or inspect them
+  voc       Pascal VOC annotations -> manifests
+  eval      held-out mAP (``--format voc|detection``) or mean-IoU
+            (``--format seg``) of a snapshot or ``.caffemodel``
 
-Each prints JSON lines on stdout, as tpufcn's do; progress goes to stderr.
-Everything runs on the card (``--device cuda``, the default) or on the
-CPU (``--device cpu``).  Not ported yet (ROADMAP Queue 1): ``--video``
-(with tpufcn's ``--video-stride`` and ``--max-frames``), ``--overlay-dir``,
-``train --records`` / ``--val-records``, ``--workers``, ``--inspect-data``
-and ``--manifest`` without ``--device-data``, and the other subcommands.
+Each prints JSON lines on stdout, as tpufcn's do (``records`` and ``voc``
+print tpufcn's plain lines); progress goes to stderr.  Everything that
+runs a model runs on the card (``--device cuda``, the default) or on the
+CPU (``--device cpu``); ``records`` and ``voc`` run on the host.  Not
+ported yet (ROADMAP Queue 1): ``--video`` (with tpufcn's ``--video-stride``
+and ``--max-frames``), ``--overlay-dir``, ``--workers``,
+``--inspect-data`` and ``--manifest`` without ``--device-data``, and the
+other subcommands.
 
     python -m torchfcn.cli detect frame.png --model googlenet_detectnet
     python -m torchfcn.cli launch examples/fcn_point_map.launch.json \
         --frames a.png b.png
     python -m torchfcn.cli gates --family fcn32s
+    python -m torchfcn.cli voc tests/fixtures/voc_mini --out man \
+        --classes ball crate cone
+    python -m torchfcn.cli records --manifest man/train.txt --format voc \
+        --out rec/ds
+    python -m torchfcn.cli train --records rec/ds --max-iter 20 \
+        --snapshot-dir snap
+    python -m torchfcn.cli eval --manifest man/val.txt --format voc \
+        --model vgg_detectnet_train --weights snap
 """
 
 from __future__ import annotations
@@ -40,9 +55,6 @@ def _log(msg: str) -> None:
     print(msg, file=sys.stderr, flush=True)
 
 
-RECORDS_MISSING = ("record shards are not ported yet: ROADMAP Queue 1, "
-                   "record and VOC data (train from --manifest with "
-                   "--device-data)")
 HOST_COMPOSITOR_MISSING = ("the host compositor is not ported yet: ROADMAP "
                            "Queue 1, record and VOC data with the host "
                            "compositor (pass --device-data)")
@@ -51,28 +63,25 @@ INSPECT_MISSING = ("--inspect-data draws rect overlays, which are not "
 
 
 def _cmd_train(args):
-    """Train a recipe (``tpufcn/cli.py::_cmd_train``) from scenes composed
-    on the device.  The layout is the recipe's ``mesh`` (every recipe is
-    1 x 1, as in tpufcn); a process started in a larger world raises."""
+    """Train a recipe (``tpufcn/cli.py::_cmd_train``) from record shards or
+    from scenes composed on the device.  The layout is the recipe's
+    ``mesh`` (every recipe is 1 x 1, as in tpufcn); a process started in a
+    larger world raises."""
     import dataclasses
     import os
     from torchfcn import recipes
-    from torchfcn.data.device_compositor import DeviceCompositePipeline
     from torchfcn.data.imageio import imread
-    from torchfcn.data.manifest import read_mask_manifest, snapshot_label_path
     from torchfcn.data.raster import resize_linear_u8
     from torchfcn.models import get_spec
     from torchfcn.train.trainer import Trainer
 
-    if args.records or args.val_records:
-        raise NotImplementedError(RECORDS_MISSING)
     if args.workers:
         raise NotImplementedError(HOST_COMPOSITOR_MISSING)
     if args.inspect_data:
         raise NotImplementedError(INSPECT_MISSING)
-    if not args.manifest:
-        raise SystemExit("--manifest is required (with --device-data)")
-    if not args.device_data:
+    if not args.records and not args.manifest:
+        raise SystemExit("one of --manifest or --records is required")
+    if args.manifest and not args.records and not args.device_data:
         raise NotImplementedError(HOST_COMPOSITOR_MISSING)
 
     cfg = recipes.get(args.recipe)
@@ -98,30 +107,56 @@ def _cmd_train(args):
     # seg supervision follows the model's heads, not the recipe's name
     heads = get_spec(cfg.model).heads
     with_seg = "seg" in heads
-    samples = read_mask_manifest(
-        args.manifest, snapshot_label_manifest=snapshot_label_path(
-            os.path.join(cfg.snapshot_dir, "labels")))
-    pipe = DeviceCompositePipeline.from_samples(
-        samples, cfg.grid, cfg.data, backgrounds=args.backgrounds,
-        imread=imread, resize=resize_linear_u8, device=args.device,
-        seed=cfg.seed)
+    if args.records:
+        # record shards store boxes and labels, not masks: a seg-only model
+        # cannot train from them, a joint one trains its detection heads
+        if heads == ("seg",):
+            raise SystemExit(
+                "--records cannot train a segmentation-only model (records "
+                "store box labels, not masks); use --manifest")
+        if with_seg:
+            _log("note: records store box labels only: training the "
+                 "detection heads, the seg head unsupervised")
+            with_seg = False
+        from torchfcn.data.pipeline import RecordTrainPipeline
+        pipe = RecordTrainPipeline(args.records, cfg.grid,
+                                   batch_size=cfg.data.batch_size)
+    else:
+        from torchfcn.data.device_compositor import DeviceCompositePipeline
+        from torchfcn.data.manifest import (
+            read_mask_manifest, snapshot_label_path)
+        samples = read_mask_manifest(
+            args.manifest, snapshot_label_manifest=snapshot_label_path(
+                os.path.join(cfg.snapshot_dir, "labels")))
+        pipe = DeviceCompositePipeline.from_samples(
+            samples, cfg.grid, cfg.data, backgrounds=args.backgrounds,
+            imread=imread, resize=resize_linear_u8, device=args.device,
+            seed=cfg.seed)
 
     validator = None
     if args.eval_every:
-        if not args.val_manifest:
-            raise SystemExit("--eval-every requires --val-manifest")
+        if not (args.val_records or args.val_manifest):
+            raise SystemExit(
+                "--eval-every requires --val-records or --val-manifest")
         cfg = dataclasses.replace(cfg, eval_every=args.eval_every)
         from torchfcn.train import validate as V
         hw = (cfg.grid.im_height, cfg.grid.im_width)
         if heads == ("seg",):
+            if not args.val_manifest:
+                raise SystemExit("seg-only families validate from "
+                                 "--val-manifest (mask manifest)")
             vi, vm = V.seg_val_set_from_manifest(
                 args.val_manifest, hw, limit=args.val_limit, imread=imread,
                 resize=resize_linear_u8)
             validator = V.seg_validator(cfg.model, vi, vm)
         else:
-            vi, vg = V.val_set_from_manifest(
-                args.val_manifest, hw, limit=args.val_limit, imread=imread,
-                resize=resize_linear_u8)
+            if args.val_records:
+                vi, vg = V.val_set_from_records(args.val_records, hw,
+                                                limit=args.val_limit)
+            else:
+                vi, vg = V.val_set_from_manifest(
+                    args.val_manifest, hw, limit=args.val_limit,
+                    imread=imread, resize=resize_linear_u8)
             validator = V.detection_validator(cfg.model, vi, vg,
                                               chunk=min(32, len(vi)))
         _log(f"validation: {len(vi)} held-out samples every "
@@ -130,7 +165,7 @@ def _cmd_train(args):
                       device=args.device, log_sink=_log)
     src = iter(pipe)
     if args.cache > 0:
-        # compose N batches once and train epochs over them on the device
+        # build N batches once and train epochs over them on the device
         from torchfcn.data.pipeline import DeviceBatchCache
         src = iter(DeviceBatchCache(trainer.put, src, args.cache))
     state = None
@@ -156,6 +191,134 @@ def _cmd_train(args):
         print(json.dumps({"trained_to": state.step,
                           "snapshot_dir": cfg.snapshot_dir,
                           "best": trainer.best, "device": args.device}))
+
+
+def _cmd_records(args):
+    """Record shards from a manifest (``tpufcn/cli.py::_cmd_records``), or
+    with ``--inspect`` one JSON line per record read back and a count."""
+    from torchfcn.data.manifest import (
+        read_detection_manifest, read_voc_manifest)
+    from torchfcn.data.records import RecordReader, create_detection_records
+    if args.inspect:
+        r = RecordReader(args.out)
+        for i in range(min(args.limit, len(r))):
+            rec = r.read(i)
+            print(json.dumps({"index": i, "image": list(rec["image"].shape),
+                              "rects": rec["rects"].tolist(),
+                              "labels": rec["labels"].tolist()}))
+        print(json.dumps({"records": len(r), "prefix": args.out}))
+        r.close()
+        return
+    if not args.manifest:
+        raise SystemExit("--manifest is required (unless --inspect)")
+    samples = (read_voc_manifest(args.manifest) if args.format == "voc"
+               else read_detection_manifest(args.manifest))
+    n = create_detection_records(
+        samples, args.out, augment=args.augment,
+        relabel_contiguous=args.relabel, add_background=args.background)
+    print(f"wrote {n} records to {args.out}-*.rec")
+
+
+def _cmd_voc(args):
+    from torchfcn.data.voc import VOC_CLASSES, PascalVOC
+    PascalVOC(args.voc_root,
+              classes=args.classes or VOC_CLASSES).create(args.out)
+    print(f"wrote manifests to {args.out}")
+
+
+def _eval_seg(args):
+    """Mean-IoU, pixel and class accuracy of a segmentation family over a
+    mask manifest (``img mask label x y w h`` records on every other line):
+    images resized to the net's size as cv2's INTER_LINEAR, masks by
+    nearest neighbour, mask pixels label + 1 (0 background)."""
+    import numpy as np
+    import torch
+    from torchfcn.data.imageio import imread_or_none
+    from torchfcn.data.manifest import (
+        bgr2gray_u8, read_label_map_snapshot, read_mask_manifest)
+    from torchfcn.data.raster import resize_linear_u8
+    from torchfcn.models import get_spec
+    from torchfcn.serve.detector import serving_model
+    from torchfcn.serve.segment import Segmenter
+    from torchfcn.train.evaluate import evaluate_segmentation
+    from torchfcn.train.validate import _resize_nearest
+
+    label_map = (read_label_map_snapshot(args.labels) if args.labels
+                 else None)
+    samples = read_mask_manifest(args.manifest, background_offset=1,
+                                 label_map=label_map)
+    spec = get_spec(args.model)
+    C = args.num_classes or spec.grid.num_classes
+    mkw = {"num_classes": args.num_classes} if args.num_classes else {}
+    seg = Segmenter(args.model, model=serving_model(
+        args.model, torch.bfloat16, 0, mkw, args.device,
+        weights=args.weights))
+    H, W = spec.grid.im_height, spec.grid.im_width
+    gts, preds = [], []
+    for s in samples[:args.limit]:
+        img, msk = imread_or_none(s.image_path), imread_or_none(s.mask_path)
+        if img is None or msk is None:
+            continue
+        msk = _resize_nearest(bgr2gray_u8(msk), (W, H))
+        gts.append(np.where(msk > 0, s.label, 0))
+        preds.append(seg(resize_linear_u8(img, (W, H))[None])[0].cpu()
+                     .numpy())
+    res = evaluate_segmentation(gts, preds, num_classes=C)
+    print(json.dumps({"mean_iou": res["mean_iou"],
+                      "pixel_accuracy": res["pixel_accuracy"],
+                      "mean_class_accuracy": res["mean_class_accuracy"],
+                      "iou": {str(k): v for k, v in res["iou"].items()},
+                      "images": len(gts)}))
+
+
+def _cmd_eval(args):
+    """Held-out mAP@``--iou`` and per-class AP of a detector over a VOC or
+    detection manifest (``tpufcn/cli.py::_cmd_eval``), each image at its own
+    size through the full serving pipeline; ``--format seg``: mean-IoU.
+    ``--weights``: a Trainer snapshot directory or a ``.caffemodel``."""
+    import os
+
+    import numpy as np
+    from torchfcn.data.imageio import imread_or_none
+    from torchfcn.data.manifest import (
+        read_detection_manifest, read_voc_manifest)
+    from torchfcn.models import get_spec
+    from torchfcn.serve.detector import Detector
+    from torchfcn.train.evaluate import evaluate_detector
+
+    if args.format == "seg":
+        return _eval_seg(args)
+    reader = (read_voc_manifest if args.format == "voc"
+              else read_detection_manifest)
+    samples = reader(args.manifest)
+    mkw = {"num_classes": args.num_classes} if args.num_classes else {}
+    if args.weights and os.path.isdir(args.weights):
+        det = Detector.from_checkpoint(args.weights, args.model,
+                                       model_kwargs=mkw, device=args.device)
+    elif args.weights:
+        # a .caffemodel, loaded as a launch graph's detector node loads it
+        from torchfcn.serve.bus import TopicBus
+        from torchfcn.serve.launch import _make_detector
+        det = _make_detector(TopicBus(), {
+            "model": args.model, "pretrained_weights": args.weights,
+            "device": args.device, **mkw}, {}).detector
+    else:
+        det = Detector(args.model, model_kwargs=mkw, device=args.device)
+    images, gts = [], []
+    for s in samples[:args.limit]:
+        img = imread_or_none(s.image_path)
+        if img is None:
+            continue
+        images.append(img)
+        r = np.asarray(s.rects, np.float64)
+        gts.append((np.concatenate([r[:, :2], r[:, :2] + r[:, 2:4]], axis=1),
+                    np.asarray(s.labels)))
+    C = args.num_classes or get_spec(args.model).grid.num_classes
+    res = evaluate_detector(det, images, gts, num_classes=C,
+                            iou_thresh=args.iou)
+    print(json.dumps({"mAP": res["mAP"],
+                      "ap": {str(k): v for k, v in res["ap"].items()},
+                      "images": len(images)}))
 
 
 def _cmd_gates(args):
@@ -191,8 +354,8 @@ VIDEO_MISSING = ("--video (camera-recording frames) is not ported yet: "
 
 
 def _read_frames(paths):
-    """(path, BGR frame) of each readable PNG; the others are reported on
-    stderr and skipped, as tpufcn skips what cv2 cannot read."""
+    """(path, BGR frame) of each readable JPEG or PNG; the others are
+    reported on stderr and skipped, as tpufcn skips what cv2 cannot read."""
     from torchfcn.data.imageio import imread
     for path in paths:
         try:
@@ -542,13 +705,14 @@ def main(argv=None):
     pf.add_argument("--device", default="cuda")
     pf.set_defaults(fn=_cmd_profile)
 
-    t = sub.add_parser("train", help="train a recipe from scenes composed "
-                                     "on the device")
+    t = sub.add_parser("train", help="train a recipe from record shards or "
+                                     "from scenes composed on the device")
     t.add_argument("--recipe", default="bounding_box")
     t.add_argument("--manifest", default=None,
                    help="mask manifest of the crops (with --device-data)")
     t.add_argument("--records", default=None,
-                   help="record shards (not ported: raises)")
+                   help="train from record shards (the prefix given to "
+                        "`records --out`) instead of composed scenes")
     t.add_argument("--backgrounds", nargs="*", default=None)
     t.add_argument("--max-iter", type=int, default=None)
     t.add_argument("--batch-size", type=int, default=None)
@@ -571,19 +735,73 @@ def main(argv=None):
                    help="compose scenes on the device (the only data path "
                         "ported)")
     t.add_argument("--cache", type=int, default=0,
-                   help="compose N batches once and train epochs over them "
+                   help="build N batches once and train epochs over them "
                         "on the device")
     t.add_argument("--eval-every", type=int, default=0, metavar="N",
                    help="score the held-out set every N steps and keep the "
                         "best snapshot in <snapshot-dir>/best")
     t.add_argument("--val-records", default=None, metavar="PREFIX",
-                   help="held-out record shards (not ported: raises)")
+                   help="held-out record shards for --eval-every "
+                        "(detection families: mAP@0.5 under the full "
+                        "serving pipeline)")
     t.add_argument("--val-manifest", default=None, metavar="FILE",
                    help="held-out manifest for --eval-every: detection "
                         "lines, or the mask manifest for seg-only families")
     t.add_argument("--val-limit", type=int, default=64)
     t.add_argument("--device", default="cuda")
     t.set_defaults(fn=_cmd_train)
+
+    r = sub.add_parser("records", help="build record shards from a manifest "
+                                       "(the LMDB writer's counterpart)")
+    r.add_argument("--manifest", default=None)
+    r.add_argument("--format", choices=("detection", "voc"),
+                   default="detection",
+                   help="manifest format: `path x y w h label` lines "
+                        "(1-based labels) or the VOC converter's "
+                        "comma-grouped multi-box manifests (0-based)")
+    r.add_argument("--out", required=True, help="shard prefix")
+    r.add_argument("--inspect", action="store_true",
+                   help="read back the records at --out and print their "
+                        "shapes and labels instead of writing")
+    r.add_argument("--limit", type=int, default=10)
+    r.add_argument("--augment", action="store_true",
+                   help="bake the reference's offline augmentation into the "
+                        "shards (original, flip, zoom-crop, blur per sample)")
+    r.add_argument("--relabel", action="store_true",
+                   help="map labels to contiguous 0..K-1 ids (the map is "
+                        "saved as <out>.labelmap.json)")
+    r.add_argument("--background", action="store_true",
+                   help="contiguous ids shifted by 1, so that id 0 is a "
+                        "learned background class")
+    r.set_defaults(fn=_cmd_records)
+
+    v = sub.add_parser("voc", help="Pascal VOC annotations -> manifests")
+    v.add_argument("voc_root")
+    v.add_argument("--out", default=".")
+    v.add_argument("--classes", nargs="*", default=None,
+                   help="class names in label order (default: the 20 "
+                        "Pascal VOC classes); objects of other names are "
+                        "skipped")
+    v.set_defaults(fn=_cmd_voc)
+
+    e = sub.add_parser("eval", help="held-out mAP or mean-IoU of weights "
+                                    "over a manifest")
+    e.add_argument("--manifest", required=True)
+    e.add_argument("--format", choices=("voc", "detection", "seg"),
+                   default="voc")
+    e.add_argument("--model", default="vgg_pyramid_detectnet")
+    e.add_argument("--weights", default=None,
+                   help="Trainer snapshot directory or .caffemodel file")
+    e.add_argument("--num-classes", type=int, default=0,
+                   help="the head width of weights trained with another "
+                        "class count than the registry's")
+    e.add_argument("--iou", type=float, default=0.5)
+    e.add_argument("--limit", type=int, default=10 ** 9)
+    e.add_argument("--labels", default=None,
+                   help="label-manifest snapshot pinning seg class ids to "
+                        "the training run's (--format seg)")
+    e.add_argument("--device", default="cuda")
+    e.set_defaults(fn=_cmd_eval)
 
     pm = sub.add_parser("pointmap", help="build the C++ point-map library")
     pm.set_defaults(fn=_cmd_pointmap)

@@ -1,3 +1,5 @@
-"""Training data of the port: manifests, the on-device scene compositor
-and the device batch cache.  Nothing here imports ``cv2``: images come as
-arrays, or through a decoder that the caller passes."""
+"""Training data of the port: manifests, the VOC converter, record shards,
+the on-device scene compositor and the batch sources.  Nothing here imports
+``cv2``: images are decoded by the port's own JPEG and PNG readers
+(``jpeg``, ``imageio``), or come as arrays, or through a decoder that the
+caller passes."""

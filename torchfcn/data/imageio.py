@@ -1,12 +1,15 @@
-"""Frame files of the port's CLI without ``cv2`` (the card's host has
-none): 8-bit PNG in numpy and ``zlib``.
+"""Image files of the port without ``cv2`` (the card's host has none):
+8-bit PNG in numpy and ``zlib``, and baseline JPEG (``torchfcn.data.jpeg``).
 
-``imread(path)`` is ``cv.imread(path)`` (``IMREAD_COLOR``) for 8-bit,
-non-interlaced PNGs of colour type 0 (gray, replicated to three channels),
-2 (RGB) or 6 (RGBA, alpha dropped): a (H, W, 3) uint8 BGR array.  Rows of
-any of the five PNG filters are undone.  Any other file (another format,
-bit depth, colour type or interlace, or a damaged PNG) raises
-``ValueError`` naming the file.
+``imread(path)`` is ``cv.imread(path)`` (``IMREAD_COLOR``), a (H, W, 3) uint8
+BGR array, chosen by the file's first bytes: a baseline JPEG
+(``jpeg.decode``, bit-equal to cv2's libjpeg-turbo), or an 8-bit,
+non-interlaced PNG of colour type 0 (gray, replicated to three channels), 2
+(RGB) or 6 (RGBA, alpha dropped), rows of any of the five PNG filters
+undone.  Any other file (another format, a progressive JPEG, another PNG
+bit depth, colour type or interlace, or a damaged file) raises
+``ValueError`` naming the file; ``imread_or_none`` returns None there, as
+``cv.imread`` does.
 
 ``imwrite(path, img)`` writes a (H, W) gray, (H, W, 3) BGR or (H, W, 4)
 BGRA uint8 array as such a PNG, every row with one filter (0-4).
@@ -16,8 +19,11 @@ from __future__ import annotations
 
 import struct
 import zlib
+from typing import Optional
 
 import numpy as np
+
+from torchfcn.data import jpeg
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 6: 4}
@@ -67,11 +73,14 @@ def _unfilter(data: bytes, h: int, w: int, bpp: int, path: str
 
 
 def imread(path: str) -> np.ndarray:
-    """(H, W, 3) uint8 BGR pixels of an 8-bit PNG, as ``cv.imread``."""
+    """(H, W, 3) uint8 BGR pixels of a baseline JPEG or an 8-bit PNG, as
+    ``cv.imread``."""
     with open(path, "rb") as f:
         raw = f.read()
+    if raw.startswith(jpeg.SOI):
+        return jpeg.decode(raw, path)
     if not raw.startswith(SIGNATURE):
-        raise ValueError(f"{path}: not a PNG file")
+        raise ValueError(f"{path}: neither a JPEG nor a PNG file")
     pos, header, idat = len(SIGNATURE), None, []
     while True:
         if pos + 8 > len(raw):
@@ -106,6 +115,15 @@ def imread(path: str) -> np.ndarray:
     if c == 1:
         return np.repeat(pix, 3, axis=2)
     return np.ascontiguousarray(pix[..., 2::-1])      # RGB(A) -> BGR
+
+
+def imread_or_none(path: str) -> Optional[np.ndarray]:
+    """``imread(path)``, or None where the file is missing or not an image
+    that ``imread`` reads (``cv.imread``'s None)."""
+    try:
+        return imread(path)
+    except (OSError, ValueError):
+        return None
 
 
 def _filter_rows(pix: np.ndarray, bpp: int, kind: int) -> bytes:

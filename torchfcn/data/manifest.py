@@ -1,5 +1,5 @@
 """Dataset manifests of the port: a copy of the sample records, the
-detection and mask manifest readers and the label-map snapshot helpers of
+manifest readers and writers and the label-map snapshot helpers of
 ``tpufcn/data/manifest.py`` (numpy only).  Copied and not imported, because
 importing ``tpufcn.data.manifest`` runs ``tpufcn/data/__init__.py``, which
 imports JAX and ``cv2``.
@@ -9,11 +9,16 @@ Formats:
 * detection: ``path x y w h label`` per line, 1-based labels;
 * mask: ``img_path mask_path label x y w h`` on every *other* line (the
   reference reader strides by 2), labels remapped to contiguous ids via
-  unique-inverse, +1 when background is class 0.
+  unique-inverse, +1 when background is class 0;
+* voc: ``img_path,x y w h label,x y w h label,...``, 0-based labels (the
+  VOC converter's, ``torchfcn.data.voc``);
+* label names: ``idx name`` (written) or ``idx _ name`` (read too).
 
-Decoding is the caller's: the port does not import ``cv2``, so every
-reader of image files takes ``imread`` (and ``resize``) from its caller
-(``need_decoder``); ``bgr2gray_u8`` reads a mask decoded in colour.
+Manifests name image files; ``torchfcn.data.imageio.imread`` decodes the
+JPEGs and PNGs they name without ``cv2``.  The readers that decode (the
+validators' held-out sets, ``DeviceCompositePipeline.from_samples``) still
+take ``imread`` (and ``resize``) from their caller (``need_decoder``);
+``bgr2gray_u8`` reads a mask decoded in colour.
 """
 
 from __future__ import annotations
@@ -21,7 +26,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -51,6 +56,16 @@ def read_detection_manifest(path: str,
         out.append(DetectionSample(vals[0], rect[None, :],
                                    np.array([label], np.int32)))
     return out
+
+
+def detection_line(image_path: str, rect, label,
+                   one_based_labels: bool = True) -> str:
+    """One ``path x y w h label`` detection-manifest line, the inverse of
+    ``read_detection_manifest`` (which subtracts the one-based offset this
+    adds)."""
+    x, y, w, h = [int(v) for v in rect]
+    return (f"{image_path} {x} {y} {w} {h} "
+            f"{int(label) + (1 if one_based_labels else 0)}")
 
 
 def read_mask_manifest(path: str,
@@ -137,6 +152,41 @@ def read_label_map_snapshot(path: str) -> Dict[int, int]:
         new_id, old = ln.split()
         out[int(old)] = int(new_id)
     return out
+
+
+def read_voc_manifest(path: str) -> List[DetectionSample]:
+    """Samples of a VOC converter manifest; groups that are not five values
+    are skipped, and so are lines with no box."""
+    out = []
+    for line in _lines(path):
+        parts = line.split(",")
+        rects, labels = [], []
+        for grp in parts[1:]:
+            v = grp.split()
+            if len(v) != 5:
+                continue
+            rects.append([int(float(x)) for x in v[:4]])
+            labels.append(int(v[4]))
+        if rects:
+            out.append(DetectionSample(
+                parts[0], np.asarray(rects, np.int32),
+                np.asarray(labels, np.int32)))
+    return out
+
+
+def write_voc_manifest(path: str, samples: Sequence[DetectionSample]) -> None:
+    with open(path, "w") as f:
+        for s in samples:
+            groups = ",".join(
+                f"{int(r[0])} {int(r[1])} {int(r[2])} {int(r[3])} {int(l)}"
+                for r, l in zip(s.rects, s.labels))
+            f.write(f"{s.image_path},{groups}\n")
+
+
+def write_label_names(path: str, names: Sequence[str]) -> None:
+    with open(path, "w") as f:
+        for i, n in enumerate(names):
+            f.write(f"{i} {n}\n")
 
 
 def need_decoder(fn, what: str):

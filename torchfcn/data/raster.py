@@ -23,6 +23,15 @@ Each follows OpenCV's 8-bit code path, fixed-point rules included:
   build computes it (a cubic convolution with exact weights): within 1,
   at about 7e-6 of the values.
 
+And two that the offline augmentation of the record writer uses
+(``torchfcn.data.records.offline_variants``):
+
+* ``gaussian_blur_u8``: ``cv.GaussianBlur(img, (kx, ky), 0)`` of uint8 for
+  kernel sizes 3, 5 and 7: OpenCV's fixed tables of small kernels, its
+  8-bit fixed-point separable filter, BORDER_REFLECT_101; bit-equal;
+* ``flip_image_with_rects``: ``cv.flip`` and the reference's rect
+  transform, copied from ``tpufcn/data/compositor.py``.
+
 And two that the tiled segmenter of the stream surface uses
 (``torchfcn.serve.stream``):
 
@@ -32,8 +41,8 @@ And two that the tiled segmenter of the stream surface uses
   mask (``cv.findContours`` + ``cv.contourArea`` + ``cv.boundingRect``).
 
 ``tests/test_torch_hardbench.py`` holds the first six against ``cv2`` over
-the sizes the benchmark draws, ``tests/test_torch_stream.py`` the last
-two.
+the sizes the benchmark draws, ``tests/test_torch_stream.py`` the two
+after them, ``tests/test_torch_records.py`` the last two.
 """
 
 from __future__ import annotations
@@ -480,3 +489,76 @@ def fill_poly(m: np.ndarray, pts: np.ndarray, color: int = 255
             if x1 < w and x2 >= 0:
                 m[y, max(x1, 0):min(x2, w - 1) + 1] = color
     return m
+
+
+# --- offline augmentation -------------------------------------------------
+
+# OpenCV's Gaussian kernels for sigma <= 0 and sizes 3, 5, 7, in 8-bit
+# fixed point (getGaussianKernelBitExact of its small-kernel table: exact)
+SMALL_GAUSSIAN_U8 = {3: (64, 128, 64), 5: (16, 64, 96, 64, 16),
+                     7: (8, 28, 56, 72, 56, 28, 8)}
+
+
+def _reflect101(idx: np.ndarray, n: int) -> np.ndarray:
+    """cv.borderInterpolate(idx, n, BORDER_REFLECT_101)."""
+    if n == 1:
+        return np.zeros_like(idx)
+    idx = np.array(idx)
+    while True:
+        lo, hi = idx < 0, idx >= n
+        if not (lo.any() or hi.any()):
+            return idx
+        idx = np.where(lo, -idx, np.where(hi, 2 * n - 2 - idx, idx))
+
+
+def gaussian_blur_u8(img: np.ndarray, ksize: Tuple[int, int]) -> np.ndarray:
+    """``cv.GaussianBlur(img, ksize, 0)`` of a uint8 (H, W[, C]) image for odd
+    kernel sizes (kx, ky) of 3 to 7: each pixel times its 8-bit kernel weight
+    along rows (exact), the row sums times the column weights, rounded
+    from 16 fractional bits; the border reflected without its edge pixel."""
+    kx, ky = (int(k) for k in ksize)
+    if kx not in SMALL_GAUSSIAN_U8 or ky not in SMALL_GAUSSIAN_U8:
+        raise ValueError(f"gaussian_blur_u8 takes kernel sizes 3, 5 or 7, "
+                         f"got {ksize}")
+    img = np.asarray(img, np.uint8)
+    h, w = img.shape[:2]
+    p = img.astype(np.int64)
+    rows = 0
+    for i, wt in enumerate(SMALL_GAUSSIAN_U8[kx]):
+        rows = rows + wt * p[:, _reflect101(np.arange(w) + i - kx // 2, w)]
+    out = 0
+    for j, wt in enumerate(SMALL_GAUSSIAN_U8[ky]):
+        out = out + wt * rows[_reflect101(np.arange(h) + j - ky // 2, h)]
+    return ((out + (1 << 15)) >> 16).astype(np.uint8)
+
+
+def flip_image_with_rects(image: np.ndarray, rects, flip_code: int):
+    """``cv.flip(image, flip_code)`` (0: rows reversed, 1: columns, -1: both)
+    and the reference rect transform (argumentation_engine.py:241-267),
+    including its -1 pixel shifts (``tpufcn/data/compositor.py:69``)."""
+    if flip_code == 0:
+        im = image[::-1]
+    elif flip_code > 0:
+        im = image[:, ::-1]
+    else:
+        im = image[::-1, ::-1]
+    im = np.ascontiguousarray(im)
+    h, w = image.shape[:2]
+    out = []
+    for rect in rects:
+        x, y, rw, rh = [int(v) for v in rect]
+        p1 = (x, y)
+        p2 = (x + rw, y + rh)
+        if flip_code == -1:
+            p1 = (w - p1[0] - 1, h - p1[1] - 1)
+            p2 = (w - p2[0] - 1, h - p2[1] - 1)
+        elif flip_code == 0:
+            p1 = (p1[0], h - p1[1] - 1)
+            p2 = (p2[0], h - p2[1] - 1)
+        elif flip_code == 1:
+            p1 = (w - p1[0] - 1, p1[1])
+            p2 = (w - p2[0] - 1, p2[1])
+        nx = max(min(p1[0], p2[0]), 0)
+        ny = max(min(p1[1], p2[1]), 0)
+        out.append([nx, ny, abs(p2[0] - p1[0]), abs(p2[1] - p1[1])])
+    return im, out

@@ -10,9 +10,11 @@ mAP under the full serving pipeline (preprocess -> forward -> decode -> NMS
 ``Segmenter``), each built once and serving the model it is given, with its
 own parameters: nothing is copied or cast per call.
 
-Held-out sets come from manifests (decoded by ``imread`` and resized by
-``resize``, both from the caller: the port does not import ``cv2``) or are
-composed on the device by the port's ``DeviceCompositePipeline``.
+Held-out sets come from record shards and VOC manifests (decoded by the
+port's ``imageio.imread`` and resized by ``raster.resize_linear_u8``, cv2's
+INTER_LINEAR), from detection and mask manifests (``imread`` and
+``resize`` from the caller), or are composed on the device by the port's
+``DeviceCompositePipeline``.
 """
 
 from __future__ import annotations
@@ -23,8 +25,10 @@ import numpy as np
 import torch
 
 from torchfcn.core.config import DetectorConfig
+from torchfcn.data.imageio import imread_or_none
 from torchfcn.data.manifest import bgr2gray_u8, need_decoder, \
-    read_detection_manifest, read_mask_manifest
+    read_detection_manifest, read_mask_manifest, read_voc_manifest
+from torchfcn.data.raster import resize_linear_u8
 from torchfcn.train.evaluate import evaluate_detections, \
     evaluate_segmentation
 
@@ -131,6 +135,41 @@ def _resize_with_boxes(img: np.ndarray, rects_xywh, hw: Tuple[int, int],
     return img, corners
 
 
+def val_set_from_records(prefix: str, hw: Tuple[int, int],
+                         limit: Optional[int] = None):
+    """Held-out detection set from record shards: -> (images (N, H, W, 3) u8,
+    gts [per image (corners, labels)])."""
+    from torchfcn.data.records import RecordReader
+    r = RecordReader(prefix)
+    n = len(r) if limit is None else min(limit, len(r))
+    images, gts = [], []
+    for i in range(n):
+        rec = r.read(i)
+        img, corners = _resize_with_boxes(rec["image"], rec["rects"], hw,
+                                          resize_linear_u8)
+        images.append(img)
+        gts.append((corners, np.asarray(rec["labels"], np.int64)))
+    r.close()
+    return np.stack(images), gts
+
+
+def _samples_to_val_set(samples, hw: Tuple[int, int], src: str,
+                        imread: Callable, resize: Optional[Callable]):
+    """Images of ``samples`` (``imread(path)`` a BGR uint8 array or None,
+    skipped) at the net's size, and their boxes as corners."""
+    images, gts = [], []
+    for s in samples:
+        img = imread(s.image_path)
+        if img is None:
+            continue
+        img, corners = _resize_with_boxes(img, s.rects, hw, resize)
+        images.append(img)
+        gts.append((corners, np.asarray(s.labels, np.int64)))
+    if not images:
+        raise ValueError(f"no readable images in {src}")
+    return np.stack(images), gts
+
+
 def val_set_from_manifest(path: str, hw: Tuple[int, int],
                           limit: Optional[int] = None,
                           imread: Optional[Callable] = None,
@@ -140,17 +179,16 @@ def val_set_from_manifest(path: str, hw: Tuple[int, int],
     (corners, labels)]).  ``imread(path)`` gives a BGR uint8 array or None;
     ``resize(img, (W, H))`` brings it to the net's size."""
     imread = need_decoder(imread, "val_set_from_manifest")
-    images, gts = [], []
-    for s in read_detection_manifest(path)[:limit]:
-        img = imread(s.image_path)
-        if img is None:
-            continue
-        img, corners = _resize_with_boxes(img, s.rects, hw, resize)
-        images.append(img)
-        gts.append((corners, np.asarray(s.labels, np.int64)))
-    if not images:
-        raise ValueError(f"no readable images in {path}")
-    return np.stack(images), gts
+    return _samples_to_val_set(read_detection_manifest(path)[:limit], hw,
+                               path, imread, resize)
+
+
+def val_set_from_voc(path: str, hw: Tuple[int, int],
+                     limit: Optional[int] = None):
+    """Held-out detection set from a VOC converter manifest (comma-grouped
+    boxes, 0-based labels: ``cli voc``'s output)."""
+    return _samples_to_val_set(read_voc_manifest(path)[:limit], hw, path,
+                               imread_or_none, resize_linear_u8)
 
 
 def _resize_nearest(mask: np.ndarray, size_wh: Tuple[int, int]) -> np.ndarray:
