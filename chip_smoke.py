@@ -223,17 +223,39 @@ plain versions are full float32.
    boxes): its mAP above VOC_MAP_LIMIT and the untrained net's below it,
    groupRectangles once a scoring chunk of 8 and held against its plain
    version on the trained net's first chunk, exactly, and timed there; the
-   gate's training step profiled (device busy against the wall per step).
+   gate's training step profiled (device busy against the wall per step);
+14. tools: the label tools (``torchfcn.tools``), whose CNN codes run VGG16
+   on the card and none of the four kernels (the launches are printed).
+   The 168 ground-truth crops of the fixture's 96 val images: the
+   extractor's float32 codes at 224x224 (TF32 off) within TOOLS_CODE_ATOL
+   of the CPU's on the same resized batch, and its bf16 codes at a cosine
+   of at least TOOLS_MIN_COSINE with the float32 ones, each with controls
+   that must miss its bound (TF32 on; the bf16 codes' rows permuted, and
+   the bf16 code of the largest crop with its pixel rows shuffled);
+   ``cli refine`` over 32 seeded 480x640 frames of a textured object
+   moving 3-8 px a frame (two of them occluded) and ``cli rank`` over a
+   manifest of the 168 crops, each in float32 on the card and on the CPU,
+   the manifests equal line for line; a launch graph of a capture, a
+   boundary_refinement and a roi_classifier node (its head fitted to the
+   crops' float32 CPU codes and their 3 labels) over 8 fixture frames,
+   float32 on the card and on the CPU, each frame's boxes published as a
+   RectsMsg and its first box on /object_rect: the JPEGs written
+   byte-equal to ``jpeg.encode`` of each frame, the refined rects equal to
+   the CPU graph's, the kept proposals' rects and labels equal to the CPU
+   graph's and their probabilities within TOOLS_PROB_ATOL, at least one
+   proposal kept; codes per second, the host's resize and device busy
+   per call at B = 1, 16 and 168 in bf16 and float32, ncc_track's host ms
+   per 480x640 frame pair, and each stage's wall.
 
 Then one JSON line of the stream phase's numbers, one of the families'
 numbers, one of the training runs' numbers, one of the data phase's, one
 of the gates', one of the mesh phase's, one of the records phase's, one
-JSON line of per-kernel numbers (with each kernel's launches per dispatch
-of the stream graphs, per training step, per step fed by the compositor,
-per validation, per gate training step and per gate scoring, per rank in
-each run of the mesh phase, in the records chain's training and eval and
-per voc_fixture scoring; the stem tail on halo rows as a row of its own),
-each kernel's time beside its
+of the tools phase's, one JSON line of per-kernel numbers (with each
+kernel's launches per dispatch of the stream graphs, per training step,
+per step fed by the compositor, per validation, per gate training step
+and per gate scoring, per rank in each run of the mesh phase, in the
+records chain's training and eval and per voc_fixture scoring; the stem
+tail on halo rows as a row of its own), each kernel's time beside its
 bound (``bound_ms``: the larger of the bytes it must move over 3.35 TB/s
 and its operations over the peak rate of their type, 989 TFLOP/s on the
 bf16 tensor cores, 67 TFLOP/s in float32, or 4.18e12/s on the special-
@@ -4252,6 +4274,367 @@ def phase_records(counters, card: str) -> dict:
                 limits=dict(mAP=VOC_MAP_LIMIT), seconds=seconds)
 
 
+# --- 14. tools: the label tools, CNN codes on the card ---
+
+# the extractor's float32 codes on the card against the CPU's, and the
+# cosine of its bf16 codes with the float32 ones.  On an NVIDIA H100 80GB
+# HBM3 at 700.00 W this phase reads 1.04e-7 in float32 and 1.08e-4 with
+# TF32 on: a bound of 1e-4 would barely tell the two apart, so the bound
+# sits a decade from each reading
+TOOLS_CODE_ATOL = 1e-5
+# on the same card the bf16 codes read a least cosine of 0.99999 with the
+# float32 ones, the controls 0.9969 (crop 113's pixel rows shuffled) and
+# 0.968 (codes of other crops): the bound sits between them
+TOOLS_MIN_COSINE = 0.9995
+# the roi_classifier's probabilities, card against CPU (both float32): the
+# fitted head turns a code's |d| of 1e-7 into about 2e-6 of probability
+TOOLS_PROB_ATOL = 1e-4
+TOOLS_FRAMES, TOOLS_HW = 32, (480, 640)
+# the sequence's frames whose object is hidden behind noise
+TOOLS_OCCLUDED = (11, 23)
+# the refine and rank walks' Bhattacharyya thresholds, chosen on the CPU
+# (float32, seeded weights) in gaps of the distances each walk compares
+# (refine: the object's crops against the occluded ones; rank: over the
+# 168 fixture crops), gaps far wider than float32 rounding on the card
+TOOLS_REFINE_THRESHOLD = 0.03
+TOOLS_RANK_THRESHOLD = 0.045
+TOOLS_GRAPH_FRAMES = 8
+TOOLS_BATCHES = (1, 16, VOC_VAL_BOXES)
+
+
+def fixture_crops() -> tuple:
+    """The fixture's val images (port imread) and their ground-truth boxes:
+    (paths, images, [(image index, (x, y, w, h), label)], crops)."""
+    from torchfcn.data.imageio import imread
+    from torchfcn.data.voc import parse_annotation
+    names = ("ball", "crate", "cone")
+    with open(os.path.join(VOC_FIXTURE, "ImageSets", "Main", "val.txt")) as f:
+        ids = [ln.split()[0] for ln in f if ln.strip()]
+    paths = [os.path.join(VOC_FIXTURE, "JPEGImages", i + ".jpg") for i in ids]
+    images = [imread(p) for p in paths]
+    boxes = [(k, rect, names.index(name)) for k, i in enumerate(ids)
+             for name, rect in parse_annotation(
+                 os.path.join(VOC_FIXTURE, "Annotations", i + ".xml"))]
+    crops = [images[k][y:y + h, x:x + w] for k, (x, y, w, h), _ in boxes]
+    if (len(images), len(crops)) != (VOC_VAL, VOC_VAL_BOXES):
+        raise AssertionError(f"tools: {len(images)} val images with "
+                             f"{len(crops)} boxes, not {VOC_VAL} with "
+                             f"{VOC_VAL_BOXES}")
+    return paths, images, boxes, crops
+
+
+def cosines(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """The cosine of each row of ``a`` with the same row of ``b``."""
+    return (a * b).sum(1) / (np.linalg.norm(a, axis=1)
+                             * np.linalg.norm(b, axis=1))
+
+
+def tools_codes(crops: list, dev: str) -> tuple:
+    """Check (a): the extractor's float32 codes on ``dev`` (TF32 off)
+    against the CPU's on the same resized batch, its bf16 codes' cosine
+    with the float32 ones, and the controls that must miss each bound:
+    float32 with TF32 on, the bf16 codes' rows permuted (each held against
+    another crop's float32 code), and the largest crop's bf16 code with its
+    pixel rows shuffled.  Returns (the readings, the float32 codes on the
+    CPU)."""
+    from torchfcn.tools.features import CnnCodeExtractor
+    f32 = CnnCodeExtractor(dtype=torch.float32, device=dev)
+    bf16 = CnnCodeExtractor(dtype=torch.bfloat16, device=dev)
+    cpu = CnnCodeExtractor(dtype=torch.float32, device="cpu")
+    batch = f32.batch(crops)
+    with cpu.policy.precision():
+        want = cpu.codes(batch.cpu()).numpy()
+    with f32.policy.precision():
+        got = f32.codes(batch).cpu().numpy()
+    err = float(np.abs(got - want).max())
+    with caller_tf32() if dev != "cpu" else contextlib.nullcontext():
+        tf32 = f32.codes(batch).cpu().numpy()
+    tf32_err = float(np.abs(tf32 - want).max())
+    half = bf16.codes(batch).cpu().numpy()
+    cos = float(cosines(half, got).min())
+    perm = np.random.default_rng(SEED).permutation(len(crops))
+    cos_control = float(cosines(half[perm], got).min())
+    big = int(np.argmax([c.shape[0] * c.shape[1] for c in crops]))
+    rows = crops[big][np.random.default_rng(SEED).permutation(
+        len(crops[big]))]
+    cos_rows = float(cosines(bf16([rows]), got[big:big + 1])[0])
+    res = dict(crops=len(crops), f32_max_abs_err=err,
+               tf32_max_abs_err=tf32_err, bf16_min_cosine=cos,
+               permuted_min_cosine=cos_control,
+               pixel_rows_shuffled_cosine=cos_rows, shuffled_crop=big,
+               limits=dict(atol=TOOLS_CODE_ATOL, min_cosine=TOOLS_MIN_COSINE))
+    log("tools", f"codes of {len(crops)} fixture crops at 224x224: float32 "
+        f"on {dev} vs the CPU max |d| {err:.3g} (limit {TOOLS_CODE_ATOL}), "
+        f"with TF32 on {tf32_err:.3g}; bf16 vs float32 min cosine {cos:.6f} "
+        f"(limit {TOOLS_MIN_COSINE}), its rows permuted {cos_control:.6f}; "
+        f"crop {big} with its pixel rows shuffled {cos_rows:.6f}")
+    if not err <= TOOLS_CODE_ATOL < tf32_err:
+        raise AssertionError(f"tools: float32 codes {err} and the TF32 "
+                             f"control {tf32_err} do not straddle "
+                             f"{TOOLS_CODE_ATOL}")
+    if not max(cos_control, cos_rows) < TOOLS_MIN_COSINE <= cos:
+        raise AssertionError(f"tools: bf16 cosines {cos} and the controls "
+                             f"{cos_control} (permuted), {cos_rows} (rows "
+                             f"shuffled) do not straddle {TOOLS_MIN_COSINE}")
+    return res, want
+
+
+def tool_sequence(work: str, seed: int) -> tuple:
+    """TOOLS_FRAMES frames of TOOLS_HW: noise with a textured 96 x 72 object
+    moving 3 to 8 px a frame (hidden behind noise in TOOLS_OCCLUDED), as
+    PNGs, and a manifest of rough boxes (the true box moved by up to 4 px):
+    (manifest path, frames, true boxes)."""
+    from torchfcn.data.imageio import imwrite
+    rng = np.random.default_rng(seed)
+    gy, gx = np.mgrid[0:96, 0:72]
+    patch = np.stack([30 + gx * 3, 220 - gy * 2, 120 + ((gx + gy) % 7) * 18],
+                     axis=-1).clip(0, 255).astype(np.uint8)
+    (h, w), x, y = TOOLS_HW, 100, 80
+    step = rng.integers(3, 9, 2) * rng.choice([-1, 1], 2)
+    frames, truth, lines = [], [], []
+    for i in range(TOOLS_FRAMES):
+        img = rng.integers(0, 60, TOOLS_HW + (3,)).astype(np.uint8)
+        img[y:y + 96, x:x + 72] = patch if i not in TOOLS_OCCLUDED else \
+            rng.integers(0, 256, (96, 72, 3)).astype(np.uint8)
+        path = os.path.join(work, f"f{i:02d}.png")
+        imwrite(path, img)
+        frames.append(img)
+        truth.append((x, y, 72, 96))
+        jx, jy = rng.integers(-4, 5, 2)
+        lines.append(f"{path} {x + jx} {y + jy} 72 96 1")
+        step = np.where((np.array([x, y]) + step < 0)
+                        | (np.array([x, y]) + step + [72, 96] > [w, h]),
+                        -step, step)
+        x, y = int(x + step[0]), int(y + step[1])
+        step = rng.integers(3, 9, 2) * np.sign(step)
+    man = os.path.join(work, "train.txt")
+    with open(man, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return man, frames, truth
+
+
+def cli_walk(cmd: str, man: str, dev: str, extra: list) -> tuple:
+    """``cli <cmd>`` over ``man`` on ``dev`` in float32 with seeded weights:
+    (its JSON line, the lines it wrote, seconds)."""
+    out = f"{man[:-4]}_{cmd}_{dev}.txt"
+    t = time.perf_counter()
+    res = json.loads(cli_json([cmd, "--manifest", man, "--out", out,
+                               "--dtype", "float32", "--device", dev]
+                              + extra)[-1])
+    return res, open(out).read().splitlines(), time.perf_counter() - t
+
+
+def tools_refine(work: str, dev: str) -> dict:
+    """Check (b): ``cli refine`` over the sequence on ``dev`` and on the
+    CPU, the refined manifests equal line for line; ncc_track timed on the
+    host over the sequence's frame pairs."""
+    from torchfcn.tools.boundary_refinement import ncc_track
+    man, frames, truth = tool_sequence(work, SEED)
+    extra = ["--threshold", str(TOOLS_REFINE_THRESHOLD)]
+    got, lines, wall = cli_walk("refine", man, dev, extra)
+    want, want_lines, cpu_wall = cli_walk("refine", man, "cpu", extra)
+    if got["refined"] != TOOLS_FRAMES or lines != want_lines:
+        unlike = sum(a != b for a, b in zip(lines, want_lines))
+        raise AssertionError(f"tools: refine on {dev} wrote {got} "
+                             f"({unlike} lines unlike the CPU's)")
+    moved = sum(l != m for l, m in zip(lines, open(man).read().splitlines()))
+    t = time.perf_counter()
+    tracked = [ncc_track(frames[i], truth[i], frames[i + 1])
+               for i in range(TOOLS_FRAMES - 1)]
+    ncc_ms = 1e3 * (time.perf_counter() - t) / (TOOLS_FRAMES - 1)
+    found = sum(abs(r[0] - truth[i + 1][0]) <= 1
+                and abs(r[1] - truth[i + 1][1]) <= 1
+                for i, r in enumerate(tracked)
+                if i + 1 not in TOOLS_OCCLUDED)
+    log("tools", f"cli refine of {TOOLS_FRAMES} frames of {TOOLS_HW[1]}x"
+        f"{TOOLS_HW[0]} in float32 (threshold {TOOLS_REFINE_THRESHOLD}): "
+        f"equal to the CPU's line for line, {moved} boxes moved by the "
+        f"tracker; {wall:.2f} s on {dev}, {cpu_wall:.2f} s on the CPU; "
+        f"ncc_track {ncc_ms:.2f} ms a frame pair on the host, the true box "
+        f"found in {found} of {TOOLS_FRAMES - 1 - len(TOOLS_OCCLUDED)} "
+        f"unoccluded pairs")
+    return dict(frames=TOOLS_FRAMES, moved=moved, wall_s=wall,
+                cpu_wall_s=cpu_wall, ncc_track_ms=ncc_ms, ncc_found=found)
+
+
+def tools_rank(work: str, paths: list, boxes: list, dev: str) -> dict:
+    """Check (c): ``cli rank`` over a manifest of the fixture's boxes (one
+    line each) on ``dev`` and on the CPU, the kept lines equal."""
+    man = os.path.join(work, "crops.txt")
+    with open(man, "w") as f:
+        for k, (x, y, w, h), label in boxes:
+            f.write(f"{paths[k]} {x} {y} {w} {h} {label + 1}\n")
+    extra = ["--threshold", str(TOOLS_RANK_THRESHOLD)]
+    got, lines, wall = cli_walk("rank", man, dev, extra)
+    want, want_lines, cpu_wall = cli_walk("rank", man, "cpu", extra)
+    if lines != want_lines or got["total"] != VOC_VAL_BOXES:
+        raise AssertionError(f"tools: rank on {dev} kept {got['kept']} "
+                             f"lines, the CPU {want['kept']}, not the same")
+    log("tools", f"cli rank of {VOC_VAL_BOXES} fixture crops in float32 "
+        f"(threshold {TOOLS_RANK_THRESHOLD}): kept {got['kept']}, equal to "
+        f"the CPU's; {wall:.2f} s on {dev}, {cpu_wall:.2f} s on the CPU")
+    return dict(kept=got["kept"], total=got["total"], wall_s=wall,
+                cpu_wall_s=cpu_wall)
+
+
+def tools_graph(work: str, images: list, boxes: list, codes: np.ndarray,
+                dev: str) -> dict:
+    """One launch graph of a capture, a boundary_refinement and a
+    roi_classifier node (float32 codes on ``dev``, its head fitted to
+    ``codes`` and the fixture's 3 labels) over TOOLS_GRAPH_FRAMES fixture
+    frames, each frame's boxes published as a RectsMsg and its first box
+    on /object_rect."""
+    from torchfcn.serve.launch import launch
+    from torchfcn.serve.stream import RectsMsg
+    from torchfcn.tools.features import CnnCodeExtractor
+    from torchfcn.tools.roi_classifier import ROIClassifier
+    clf = ROIClassifier(3, extractor=CnnCodeExtractor(
+        dtype=torch.float32, device=dev))
+    clf.fit_head(codes, np.array([label for *_, label in boxes]), 3)
+    cap = os.path.join(work, f"capture_{dev}")
+    image = "/camera/rgb/image_rect_color"
+    graph = launch({
+        "capture": {"type": "capture", "params": {"out_dir": cap}},
+        "boundary_refinement": {"type": "boundary_refinement"},
+        "roi_classifier": {"type": "roi_classifier",
+                           "params": {"classifier": clf},
+                           "remap": {"image": image}},
+    })
+    refined, kept = [], []
+    graph.bus.subscribe("/boundary_refinement/rect", refined.append)
+    graph.bus.subscribe("/rcnn_detector/rects", kept.append)
+    t = time.perf_counter()
+    for k in range(TOOLS_GRAPH_FRAMES):
+        rects = [rect for i, rect, _ in boxes if i == k]
+        graph.bus.publish(image, images[k], stamp=float(k))
+        graph.bus.publish(RECTS_TOPIC, RectsMsg(
+            [p for x, y, w, h in rects for p in ((x, y), (x + w, y + h))],
+            [0] * len(rects), [1.0] * len(rects)), stamp=float(k))
+        graph.bus.publish("/object_rect", list(rects[0]), stamp=float(k))
+        graph.spin()
+    graph.spin()
+    wall = time.perf_counter() - t
+    return dict(cap=cap, wall_s=wall,
+                refined=[(m.stamp, list(m.data)) for m in refined],
+                kept=[(m.stamp, m.data.points, m.data.labels,
+                       np.array(m.data.confidences)) for m in kept],
+                processed=graph.nodes["capture"].processed)
+
+
+def check_tools_graph(work, images, boxes, cpu_codes, dev) -> dict:
+    """Check (d): the graph on ``dev`` and on the CPU, both float32 with the
+    head fitted to the same CPU codes: the captured JPEGs byte-equal to
+    ``jpeg.encode`` of each frame, the refined rects equal, the kept
+    proposals' rects and labels equal and their probabilities within
+    TOOLS_PROB_ATOL, at least one proposal kept."""
+    from torchfcn.data import jpeg
+    card = tools_graph(work, images, boxes, cpu_codes, dev)
+    cpu = tools_graph(work, images, boxes, cpu_codes, "cpu")
+    written = [open(os.path.join(card["cap"], f"{k:08d}.jpg"), "rb").read()
+               for k in range(card["processed"])]
+    if card["processed"] != TOOLS_GRAPH_FRAMES or written != [
+            jpeg.encode(img, 95) for img in images[:TOOLS_GRAPH_FRAMES]]:
+        raise AssertionError(f"tools: the capture node wrote "
+                             f"{card['processed']} frames, not the JPEGs of "
+                             f"the {TOOLS_GRAPH_FRAMES} published")
+    if card["refined"] != cpu["refined"] or \
+            len(card["refined"]) != TOOLS_GRAPH_FRAMES - 1:
+        raise AssertionError(f"tools: refined rects {card['refined']} on "
+                             f"{dev}, {cpu['refined']} on the CPU")
+    n_kept = sum(len(labels) for _, _, labels, _ in card["kept"])
+    if len(card["kept"]) != TOOLS_GRAPH_FRAMES or n_kept < 1:
+        raise AssertionError(f"tools: the roi_classifier node published "
+                             f"{card['kept']}")
+    if [k[:3] for k in card["kept"]] != [k[:3] for k in cpu["kept"]]:
+        raise AssertionError(f"tools: kept proposals {card['kept']} on "
+                             f"{dev}, {cpu['kept']} on the CPU")
+    prob_err = max(float(np.abs(a[3] - b[3]).max(initial=0.0))
+                   for a, b in zip(card["kept"], cpu["kept"]))
+    if not prob_err <= TOOLS_PROB_ATOL:
+        raise AssertionError(f"tools: kept probabilities {prob_err} apart "
+                             f"(limit {TOOLS_PROB_ATOL})")
+    log("tools", f"launch graph capture + boundary_refinement + "
+        f"roi_classifier over {TOOLS_GRAPH_FRAMES} fixture frames in "
+        f"float32: JPEGs byte-equal to jpeg.encode, {len(card['refined'])} "
+        f"refined rects and {n_kept} kept proposals' rects and labels equal "
+        f"to the CPU graph's, probabilities max |d| {prob_err:.3g} (limit "
+        f"{TOOLS_PROB_ATOL}); {card['wall_s']:.2f} s on {dev}, "
+        f"{cpu['wall_s']:.2f} s on the CPU")
+    return dict(frames=TOOLS_GRAPH_FRAMES, refined=len(card["refined"]),
+                kept=n_kept, prob_max_abs_err=prob_err,
+                limits=dict(prob_atol=TOOLS_PROB_ATOL),
+                wall_s=card["wall_s"], cpu_wall_s=cpu["wall_s"])
+
+
+def tools_timings(crops: list, card: str) -> dict:
+    """Check (e): codes per second (host resize, transfer, forward, codes
+    back; median of 3 calls after one), the host's resize and copy, and
+    device busy per call (one profile of a call at each of TOOLS_BATCHES,
+    each in a range of its own) in bf16 and float32."""
+    from torchfcn.serve.profile import range_device_us
+    from torchfcn.tools.features import CnnCodeExtractor
+    rows = {}
+    for name, dtype in (("bfloat16", torch.bfloat16),
+                        ("float32", torch.float32)):
+        ext = CnnCodeExtractor(dtype=dtype, device="cuda")
+        batches = {}
+        for n in TOOLS_BATCHES:
+            part = crops[:n]
+            ext(part)
+            times = []
+            for _ in range(3):
+                t = time.perf_counter()
+                ext(part)
+                times.append(time.perf_counter() - t)
+            t = time.perf_counter()
+            batches[n] = ext.batch(part)
+            torch.cuda.synchronize()
+            rows[f"{name}_b{n}"] = dict(
+                codes_s=n / statistics.median(times),
+                wall_ms=1e3 * statistics.median(times),
+                resize_ms=1e3 * (time.perf_counter() - t))
+
+        def calls():
+            with ext.policy.precision():
+                for n, batch in batches.items():
+                    with torch.profiler.record_function(f"tools B={n};"):
+                        ext.codes(batch)
+
+        prof, _ = device_profile(calls, f"tools: codes {name}")
+        for n in TOOLS_BATCHES:
+            row = rows[f"{name}_b{n}"]
+            row["busy_ms"] = range_device_us(prof, f"tools B={n};") / 1e3
+            row["idle_share"] = 1 - row["busy_ms"] / row["wall_ms"]
+    log("tools", f"codes at 224x224 on {card}: " + "; ".join(
+        f"{k} {v['codes_s']:.1f} codes/s ({v['wall_ms']:.2f} ms a call, "
+        f"device busy {v['busy_ms']:.3f} ms, host resize and copy "
+        f"{v['resize_ms']:.2f} ms)" for k, v in rows.items()))
+    return rows
+
+
+def phase_tools(counters, card: str) -> dict:
+    """The label tools on the card; returns their readings."""
+    import shutil
+    import tempfile
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="torchfcn_tools_")
+    for c in counters.values():
+        c.launches = 0
+    paths, images, boxes, crops = fixture_crops()
+    codes, cpu_codes = tools_codes(crops, "cuda")
+    refine = tools_refine(work, "cuda")
+    rank = tools_rank(work, paths, boxes, "cuda")
+    graph = check_tools_graph(work, images, boxes, cpu_codes, "cuda")
+    launches = {k: c.launches for k, c in counters.items()}
+    shutil.rmtree(work)
+    timings = tools_timings(crops, card)
+    seconds = time.perf_counter() - t_phase
+    log("tools", f"phase took {seconds:.1f} s; kernel launches {launches} "
+        f"(the tools' path runs none of the four); on {card}")
+    return dict(codes=codes, refine=refine, rank=rank, graph=graph,
+                timings=timings, launches=launches, seconds=seconds)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4296,6 +4679,7 @@ def main() -> int:
     gate = phase_gates(counters, card)
     mesh = phase_mesh(rng, counters, card)
     records = phase_records(counters, card)
+    tools = phase_tools(counters, card)
 
     meta = {
         "group_rects": ("torchfcn/csrc/group_rects.cu",
@@ -4351,6 +4735,7 @@ def main() -> int:
     print(json.dumps({"card": card, "gates": gate}), flush=True)
     print(json.dumps({"card": card, "mesh": mesh}), flush=True)
     print(json.dumps({"card": card, "records": records}), flush=True)
+    print(json.dumps({"card": card, "tools": tools}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

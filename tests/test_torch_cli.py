@@ -11,6 +11,11 @@ exactly, confidences within 1 float32 ulp (XLA's CPU log).  ``detect``,
 ``replay`` (per frame and ``--micro-batch``) and ``launch`` are compared
 so; ``export`` is loaded back and must equal the Detector; ``profile``
 (serving and ``--train``) must name operators with their time.
+
+``convert`` of a ``.caffemodel`` must write tpufcn's ``.npz`` (keys, order
+and arrays); ``refine`` and ``rank`` over a manifest of PNG frames, with
+one VGG16 ``.caffemodel`` for both packages' extractors, must print the
+same JSON lines and write the same manifests as tpufcn's.
 """
 
 import json
@@ -178,3 +183,110 @@ def test_profile(capsys, train):
     names = [o["name"] for o in got["ops"]]
     assert any("conv" in n for n in names)
     assert os.path.isfile(os.path.join(got["logdir"], "trace.json"))
+
+
+def test_convert_matches_tpufcn(tmp_path, capsys, monkeypatch):
+    """``convert`` of one ``.caffemodel`` that names every conv of the
+    model: the same ``.npz`` keys, in the same order, and arrays in both
+    CLIs; a file that lacks a conv converts only with ``--lenient``."""
+    from torchfcn.models import build
+    model = build(MODEL)
+    model.init_weights(torch.Generator().manual_seed(3))
+    path = str(tmp_path / "w.caffemodel")
+    export_caffemodel(model, path)
+    out = {}
+    for tag in ("jax", "port"):
+        npz = str(tmp_path / f"{tag}.npz")
+        argv = ["convert", path, "--model", MODEL, "--out", npz]
+        if tag == "jax":
+            monkeypatch.setenv("TPUFCN_PLATFORM", "cpu")
+            from tpufcn import cli as jcli
+            jcli.main(argv)
+        else:
+            cli.main(argv)
+        line = capsys.readouterr().out.strip().splitlines()[-1]
+        assert line == f"wrote {npz} ({len(np.load(npz).files)} arrays)"
+        out[tag] = np.load(npz)
+    assert out["port"].files == out["jax"].files
+    assert "params/backbone/conv1_1/conv/kernel" in out["port"].files
+    for k in out["jax"].files:
+        a, b = out["port"][k], out["jax"][k]
+        assert a.dtype == b.dtype == np.float32 and np.array_equal(a, b), k
+    # the .npz loads back into the model through from_jax
+    from torchfcn.convert.from_jax import load_jax_params
+    again = build(MODEL)
+    tree = {}
+    for leaf in again.flax_paths().values():
+        node = tree
+        for part in leaf[:-1]:
+            node = node.setdefault(part, {})
+        node[leaf[-1]] = out["port"]["/".join(("params",) + leaf)]
+    load_jax_params(again, tree)
+    assert all(torch.equal(a, b) for a, b in zip(again.state_dict().values(),
+                                                 model.state_dict().values()))
+    # a blob that no conv takes converts only with --lenient
+    from torchfcn.convert import load_caffemodel, write_caffemodel
+    layers = load_caffemodel(path)
+    layers["extra"] = [np.ones((2, 3, 3, 3), np.float32)]
+    extra = str(tmp_path / "extra.caffemodel")
+    write_caffemodel(extra, layers)
+    with pytest.raises(KeyError, match="extra"):
+        cli.main(["convert", extra, "--model", MODEL, "--out",
+                  str(tmp_path / "x.npz")])
+    cli.main(["convert", extra, "--model", MODEL, "--out",
+              str(tmp_path / "y.npz"), "--lenient"])
+    assert capsys.readouterr().out.startswith("wrote ")
+
+
+def _tool_sequence(tmp_path):
+    """A manifest over 10 PNG frames of a textured object moving across
+    noise, with two frames of noise alone, and a VGG16 ``.caffemodel`` for
+    the tools' extractor."""
+    from torchfcn.models.vgg import VGG16Backbone
+    rng = np.random.default_rng(2)
+    gy, gx = np.mgrid[0:40, 0:30]
+    patch = np.stack([30 + gx * 4, 200 - gy * 3, 120 + ((gx + gy) % 7) * 10],
+                     axis=-1).clip(0, 255).astype(np.uint8)
+    lines = []
+    for i in range(10):
+        img = rng.integers(0, 60, (120, 160, 3)).astype(np.uint8)
+        if i in (4, 7):
+            img = rng.integers(0, 256, (120, 160, 3)).astype(np.uint8)
+        else:
+            img[30 + 2 * i:70 + 2 * i, 40 + 4 * i:70 + 4 * i] = patch
+        p = str(tmp_path / f"f{i}.png")
+        imwrite(p, img)
+        lines.append(f"{p} {38 + 4 * i} {28 + 2 * i} 34 44 1")
+    man = str(tmp_path / "train.txt")
+    with open(man, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    backbone = VGG16Backbone()
+    backbone.init_weights(torch.Generator().manual_seed(4))
+    weights = str(tmp_path / "vgg16.caffemodel")
+    export_caffemodel(backbone, weights)
+    return man, weights
+
+
+def test_refine_and_rank_match_tpufcn(tmp_path, capsys, monkeypatch):
+    """``refine`` and ``rank`` (both metrics) through both CLIs with one
+    VGG16 ``.caffemodel`` at 64 x 64 in bf16: equal JSON lines and equal
+    manifests at the default paths next to the input.  The seeded
+    backbone's codes of the object's crops lie within 0.01 of each other,
+    ten times that from the noise, so a threshold of 0.03 keeps the one
+    and drops the other whatever bf16 rounds."""
+    man, weights = _tool_sequence(tmp_path)
+    common = ["--manifest", man, "--input-size", "64", "--threshold", "0.03",
+              "--extractor-weights", weights]
+    for argv in (["refine"], ["rank"], ["rank", "--metric", "chi_square"]):
+        argv = argv + common
+        want = _jax_cli(argv, capsys, monkeypatch)
+        want_text = open(want[-1]["out"]).read()
+        got = _port_cli(argv, capsys)
+        assert got == want
+        assert open(got[-1]["out"]).read() == want_text
+        if argv[0] == "refine":
+            assert got == [{"refined": 10, "out": str(tmp_path /
+                                                      "train_refined.txt")}]
+        else:
+            assert got == [{"kept": 8, "total": 10,
+                            "out": str(tmp_path / "train2.txt")}]

@@ -9,7 +9,11 @@ node (``torchfcn/pointmap``) against tpufcn's.
   the port does not have yet (``overlay_topic``) raises
   ``NotImplementedError`` naming its ROADMAP item, and the graph runs once
   it is taken out (and ``mesh``, which needs a process group of several
-  ranks); the unported node types raise the same way.
+  ranks).
+* The label tools' node types (capture, boundary_refinement,
+  roi_classifier) build on the CPU and run on two synced frames; a
+  boundary-refinement and a capture node on one graph publish and write
+  what tpufcn's do.
 * The multichip example's params without the overlay at (data=2,
   space=2) on 4 gloo CPU ranks, rank 0 leading and the others following:
   the rects it publishes per frame equal a one-device graph's on the same
@@ -242,13 +246,96 @@ def test_multichip_example_on_four_ranks(tmp_path):
     assert sorted(got[0]) == sorted(want)
 
 
+def _tool_scene(rng, ox, oy):
+    """Noise with a textured 40 x 30 object at (ox, oy)
+    (``tests/test_cli_launch.py::test_launch_tool_nodes``'s scene)."""
+    img = rng.integers(0, 60, (120, 160, 3)).astype(np.uint8)
+    gy, gx = np.mgrid[0:40, 0:30]
+    img[oy:oy + 40, ox:ox + 30] = np.stack(
+        [30 + gx * 4, 200 - gy * 3, (gx + gy) % 7 * 20],
+        axis=-1).clip(0, 255).astype(np.uint8)
+    return img
+
+
+# each tool node type: its params on the CPU, the topics it reads (image,
+# then a rect or the detector's rects) and the topic it publishes on
+TOOL_NODES = {
+    "capture": ({}, "/camera/rgb/image_rect_color", "/object_rect", None),
+    "boundary_refinement": ({}, "/camera/rgb/image_rect_color",
+                            "/object_rect", "/boundary_refinement/rect"),
+    "roi_classifier": ({"device": "cpu", "dtype": "float32",
+                        "prob_thresh": 0.0}, "image", RECTS,
+                       "/rcnn_detector/rects"),
+}
+
+
 @pytest.mark.parametrize("ntype", ["capture", "boundary_refinement",
                                    "roi_classifier"])
-def test_unported_node_types_raise(ntype):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        launch({"n": {"type": ntype}})
+def test_unported_node_types_raise(ntype, tmp_path):
+    """The label tools' node types build on the CPU and run on two synced
+    frames; an unknown type raises KeyError.  (The name is from when these
+    types raised NotImplementedError; the ids are kept.)"""
+    from torchfcn.serve.stream import RectsMsg
+    params, image, rect, out = TOOL_NODES[ntype]
+    params = dict(params, out_dir=str(tmp_path / "cap"))
+    graph = launch({"n": {"type": ntype, "params": params}})
+    got = []
+    if out:
+        graph.bus.subscribe(out, got.append)
+    rng = np.random.default_rng(0)
+    for t, (ox, oy) in enumerate([(40, 30), (46, 34)]):
+        graph.bus.publish(image, _tool_scene(rng, ox, oy), stamp=float(t))
+        box = [40, 30, 30, 40]
+        graph.bus.publish(rect, box if ntype != "roi_classifier" else
+                          RectsMsg([(40, 30), (70, 70)], [0], [0.9]),
+                          stamp=float(t))
+        graph.spin()
+    graph.spin()
+    if ntype == "capture":
+        assert graph.nodes["n"].processed == 2
+        assert sorted(os.listdir(tmp_path / "cap")) == [
+            "00000000.jpg", "00000001.jpg", "train.txt"]
+    elif ntype == "boundary_refinement":
+        assert [m.stamp for m in got] == [1.0]
+        x, y, _, _ = got[0].data
+        assert abs(x - 46) <= 3 and abs(y - 34) <= 3
+    else:
+        assert [m.stamp for m in got] == [0.0, 1.0]
+        assert all(m.data.points == [(40, 30), (70, 70)] for m in got)
     with pytest.raises(KeyError):
         launch({"n": {"type": "no_such_node"}})
+
+
+def test_launch_tool_nodes_matches_tpufcn(tmp_path):
+    """``tests/test_cli_launch.py::test_launch_tool_nodes`` in both
+    packages: a boundary-refinement node and a capture node on one graph,
+    two synced frames; the tracked rect and the captured files equal."""
+    out = {}
+    for tag, make in (("port", launch), ("jax", jlaunch)):
+        cap = str(tmp_path / tag)
+        params = {"out_dir": cap}
+        graph = make({
+            "boundary_refinement": {"type": "boundary_refinement"},
+            "writer": {"type": "capture", "params": params},
+        })
+        got = []
+        graph.bus.subscribe("/boundary_refinement/rect", got.append)
+        rng = np.random.default_rng(1)
+        for t, (ox, oy) in enumerate([(40, 30), (46, 34)]):
+            graph.bus.publish("/camera/rgb/image_rect_color",
+                              _tool_scene(rng, ox, oy), stamp=float(t))
+            graph.bus.publish("/object_rect", [40, 30, 30, 40],
+                              stamp=float(t))
+            graph.spin()
+        graph.spin()
+        files = {n: open(os.path.join(cap, n), "rb").read()
+                 for n in sorted(os.listdir(cap))}
+        files["train.txt"] = files["train.txt"].replace(cap.encode(), b"")
+        out[tag] = ([(m.stamp, list(m.data)) for m in got], files)
+    assert out["port"] == out["jax"]
+    (stamp, (x, y, w, h)), = out["port"][0]
+    assert abs(x - 46) <= 3 and abs(y - 34) <= 3
+    assert len(out["port"][1]) == 3
 
 
 def _cloud(h=48, w=64):

@@ -19,11 +19,16 @@ package's flags plus ``--device``.  Subcommands so far:
   voc       Pascal VOC annotations -> manifests
   eval      held-out mAP (``--format voc|detection``) or mean-IoU
             (``--format seg``) of a snapshot or ``.caffemodel``
+  convert   a ``.caffemodel`` -> tpufcn's ``.npz`` parameter tree of a model
+  refine    the boundary-refinement walk over a detection manifest
+  rank      proposal ranking / outlier rejection over a detection manifest
 
-Each prints JSON lines on stdout, as tpufcn's do (``records`` and ``voc``
-print tpufcn's plain lines); progress goes to stderr.  Everything that
-runs a model runs on the card (``--device cuda``, the default) or on the
-CPU (``--device cpu``); ``records`` and ``voc`` run on the host.  Not
+Each prints JSON lines on stdout, as tpufcn's do (``records``, ``voc`` and
+``convert`` print tpufcn's plain lines); progress goes to stderr.
+Everything that runs a model runs on the card (``--device cuda``, the
+default) or on the CPU (``--device cpu``); ``records``, ``voc`` and
+``convert`` run on the host, and so do the tracking and clustering of
+``refine`` and ``rank`` (their CNN codes run on ``--device``).  Not
 ported yet (ROADMAP Queue 1): ``--video`` (with tpufcn's ``--video-stride``
 and ``--max-frames``), ``--overlay-dir``, ``--workers``,
 ``--inspect-data`` and ``--manifest`` without ``--device-data``, and the
@@ -41,6 +46,12 @@ other subcommands.
         --snapshot-dir snap
     python -m torchfcn.cli eval --manifest man/val.txt --format voc \
         --model vgg_detectnet_train --weights snap
+    python -m torchfcn.cli convert vgg16.caffemodel --model \
+        vgg_detectnet_train --out weights.npz --lenient
+    python -m torchfcn.cli refine --manifest seq/train.txt \
+        --extractor-weights vgg16.caffemodel      # seq/train_refined.txt
+    python -m torchfcn.cli rank --manifest seq/train.txt \
+        --metric chi_square                       # seq/train2.txt
 """
 
 from __future__ import annotations
@@ -567,6 +578,77 @@ def _cmd_profile(args):
                   f"{o['count'] / r['iters']:6.1f}  {o['name'][:90]}")
 
 
+def _cmd_convert(args):
+    """A ``.caffemodel`` -> the ``.npz`` of ``--model``'s parameter tree
+    that tpufcn's ``convert`` writes (``tpufcn/cli.py::_cmd_convert``): the
+    same keys (``params/<Flax path>``) and float32 arrays, kernels HWIO.
+    Convs the file does not name keep the model's seeded init, where
+    tpufcn's keep JAX's."""
+    import numpy as np
+    import torch
+    from torchfcn.convert import convert_caffemodel
+    from torchfcn.convert.from_jax import flax_arrays
+    from torchfcn.models import build
+
+    model = build(args.model)
+    model.init_weights(torch.Generator().manual_seed(0))
+    convert_caffemodel(model, args.caffemodel, strict=not args.lenient)
+    arrays = flax_arrays(model)
+    np.savez(args.out, **arrays)
+    print(f"wrote {args.out} ({len(arrays)} arrays)")
+
+
+def _tool_extractor(args):
+    """CNN-code extractor for the pseudo-label tools, on ``--device`` in
+    ``--dtype``: trained VGG16 weights from a .caffemodel when given (the
+    reference tools load a .caffemodel for their fc7 codes,
+    boundary_refinement.py:374-383), else the seeded init (the extractor
+    itself warns that gating will be weak)."""
+    import torch
+    from torchfcn.tools.features import CnnCodeExtractor
+    kw = dict(input_size=args.input_size, dtype=getattr(torch, args.dtype),
+              device=args.device)
+    if args.extractor_weights:
+        return CnnCodeExtractor.from_caffemodel(args.extractor_weights, **kw)
+    return CnnCodeExtractor(**kw)
+
+
+def _cmd_refine(args):
+    """Offline boundary-refinement walk over a detection manifest
+    (reference boundary_refinement.py:77-157): track each frame's box
+    from the previous frame, keep the tracked box when its CNN code
+    stays similar, write the refined manifest."""
+    import os
+    from torchfcn.data.manifest import read_detection_manifest
+    from torchfcn.tools.boundary_refinement import BoundaryRefiner
+    samples = read_detection_manifest(args.manifest)
+    out = args.out or os.path.join(
+        os.path.dirname(os.path.abspath(args.manifest)),
+        "train_refined.txt")
+    refiner = BoundaryRefiner(extractor=_tool_extractor(args),
+                              similarity_thresh=args.threshold)
+    n = refiner.refine_manifest(samples, out)
+    print(json.dumps({"refined": n, "out": out}))
+
+
+def _cmd_rank(args):
+    """Proposal ranking / outlier rejection over a detection manifest
+    (reference rank_object_models.py): cluster the crops' CNN codes,
+    walk the sequence with template/previous similarity gating, write
+    the kept lines (the reference's train2.txt convention)."""
+    import os
+    from torchfcn.data.manifest import read_detection_manifest
+    from torchfcn.tools.rank_proposals import RankObjectProposals
+    samples = read_detection_manifest(args.manifest)
+    out = args.out or os.path.join(
+        os.path.dirname(os.path.abspath(args.manifest)), "train2.txt")
+    ranker = RankObjectProposals(extractor=_tool_extractor(args),
+                                 distance_thresh=args.threshold,
+                                 metric=args.metric)
+    n = ranker.write_filtered(samples, out)
+    print(json.dumps({"kept": n, "total": len(samples), "out": out}))
+
+
 def _cmd_pointmap(args):
     from torchfcn.pointmap import build_library
     print(build_library(force=True))
@@ -802,6 +884,43 @@ def main(argv=None):
                         "the training run's (--format seg)")
     e.add_argument("--device", default="cuda")
     e.set_defaults(fn=_cmd_eval)
+
+    c = sub.add_parser("convert", help="a .caffemodel -> tpufcn's .npz "
+                                       "parameter tree of a model")
+    c.add_argument("caffemodel")
+    c.add_argument("--model", default="googlenet_detectnet")
+    c.add_argument("--out", default="weights.npz")
+    c.add_argument("--lenient", action="store_true")
+    c.set_defaults(fn=_cmd_convert)
+
+    def _tool_args(sp):
+        sp.add_argument("--manifest", required=True)
+        sp.add_argument("--out", default=None,
+                        help="output manifest (default: next to the "
+                             "input, the reference's convention)")
+        sp.add_argument("--threshold", type=float, default=0.5)
+        sp.add_argument("--extractor-weights", default=None,
+                        help="VGG16 .caffemodel for the CNN-code "
+                             "extractor (seeded init otherwise)")
+        sp.add_argument("--input-size", type=int, default=224)
+        sp.add_argument("--dtype", choices=("bfloat16", "float32"),
+                        default="bfloat16",
+                        help="the extractor's compute dtype")
+        sp.add_argument("--device", default="cuda")
+
+    rf = sub.add_parser("refine",
+                        help="offline boundary-refinement walk "
+                             "(boundary_refinement.py analog)")
+    _tool_args(rf)
+    rf.set_defaults(fn=_cmd_refine)
+
+    rk = sub.add_parser("rank",
+                        help="proposal ranking / outlier rejection "
+                             "(rank_object_models.py analog)")
+    _tool_args(rk)
+    rk.add_argument("--metric", choices=("bhattacharyya", "chi_square"),
+                    default="bhattacharyya")
+    rk.set_defaults(fn=_cmd_rank)
 
     pm = sub.add_parser("pointmap", help="build the C++ point-map library")
     pm.set_defaults(fn=_cmd_pointmap)

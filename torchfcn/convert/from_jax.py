@@ -1,4 +1,5 @@
-"""Load a tpufcn (JAX/Flax) parameter tree into a model of the port's zoo.
+"""Load a tpufcn (JAX/Flax) parameter tree into a model of the port's zoo,
+and write a model's parameters as such a tree (``flax_arrays``).
 
 The tree comes as nested dicts of numpy arrays (``jax.tree.map(np.asarray,
 params)``), named as in the JAX package, e.g.::
@@ -16,7 +17,7 @@ the module is set.  This module needs neither JAX nor Flax.
 
 from __future__ import annotations
 
-from typing import Any, Mapping
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
@@ -55,3 +56,19 @@ def load_jax_params(model: ZooModel, tree: Mapping[str, Any]) -> None:
     unused = sorted("/".join(p) for p in set(leaves) - used)
     if unused:
         raise KeyError(f"JAX leaves not loaded: {unused}")
+
+
+def flax_arrays(model: ZooModel) -> Dict[str, np.ndarray]:
+    """The parameters of ``model`` as the JAX package's ``convert``
+    subcommand writes its tree into a ``.npz`` (the inverse of
+    ``load_jax_params``): ``params/<Flax path>`` -> float32 array, kernels
+    HWIO, in the order of JAX's flattening (the keys sorted at each
+    level)."""
+    paths = model.flax_paths()
+    arrays = {}
+    for name, param in model.named_parameters():
+        value = param.detach().float().cpu().numpy()
+        if value.ndim == 4:
+            value = value.transpose(2, 3, 1, 0)          # OIHW -> HWIO
+        arrays[("params",) + paths[name]] = np.ascontiguousarray(value)
+    return {"/".join(path): arrays[path] for path in sorted(arrays)}

@@ -47,11 +47,14 @@ PYRAMID_BINS = (1, 2, 4, 7)
 HEAD_NAMES = {"cvg": "cvg/classifier", "bbox": "bbox/regressor"}
 
 
-class VGG16Backbone(nn.Module):
+class VGG16Backbone(ZooModel):
     """conv1_1 .. conv5_3 with k2/s2 ceil-mode pools after stages 1-4.
 
     Returns the taps pool3, conv4_3, pool4 and conv5_3 (and the others),
     NCHW.  ``relu5_3=False`` drops conv5_3's ReLU (the pyramid deploy net).
+    As a model of its own (the label tools' CNN codes) its Flax paths and
+    Caffe layer names are the JAX package's ``VGG16Backbone``'s:
+    ``conv1_1`` .. ``conv5_3``.
     """
 
     def __init__(self, relu5_3: bool = True,

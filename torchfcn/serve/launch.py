@@ -17,9 +17,10 @@ resolved onto one TopicBus (or a ``RemoteTopicBus`` across processes):
     })
     graph.bus.publish(...); graph.spin()
 
-The detector node runs on the card unless its params say
-``"device": "cpu"``.  Node types and params that the port does not have
-yet raise ``NotImplementedError`` naming their ROADMAP item.
+The detector node and the tool nodes' CNN codes run on the card unless
+their params say ``"device": "cpu"``.  The one param the port does not
+have yet, a detector's ``overlay_topic``, raises ``NotImplementedError``
+naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -166,21 +167,55 @@ def _make_point_map(bus: TopicBus, params: Dict[str, Any],
         area_thresh=params.get("rect_thresh", 400))
 
 
-def _not_ported(what: str, item: str):
-    def make(bus, params, remap):
-        raise NotImplementedError(f"the {what} node is not ported yet: "
-                                  f"ROADMAP Queue 1, {item}")
-    return make
+def _make_capture(bus: TopicBus, params: Dict[str, Any],
+                  remap: Dict[str, str]):
+    from torchfcn.tools.capture import ImageRectWriter
+    return ImageRectWriter(
+        bus, out_dir=params.get("out_dir", "capture"),
+        label=params.get("label", 1),
+        image_topic=remap.get("image", "/camera/rgb/image_rect_color"),
+        rect_topic=remap.get("rect", "/object_rect"))
+
+
+def _make_boundary_refinement(bus: TopicBus, params: Dict[str, Any],
+                              remap: Dict[str, str]):
+    from torchfcn.tools.boundary_refinement import (
+        BoundaryRefiner, BoundaryRefinerNode)
+    return BoundaryRefinerNode(
+        bus,
+        refiner=BoundaryRefiner(
+            similarity_thresh=params.get("similarity_distance", 0.5)),
+        image_topic=remap.get("image", "/camera/rgb/image_rect_color"),
+        rect_topic=remap.get("rect", "/object_rect"),
+        out_topic=remap.get("out", "/boundary_refinement/rect"))
+
+
+def _make_roi_classifier(bus: TopicBus, params: Dict[str, Any],
+                         remap: Dict[str, str]):
+    """Without a pre-built ``classifier``, a random head over seeded CNN
+    codes on ``device`` in ``dtype``."""
+    from torchfcn.tools.features import CnnCodeExtractor
+    from torchfcn.tools.roi_classifier import ROIClassifier, ROIClassifierNode
+    clf = params.get("classifier")  # pre-built (e.g. fit_head-trained)
+    if clf is None:
+        clf = ROIClassifier(num_classes=int(params.get("num_classes", 2)),
+                            extractor=CnnCodeExtractor(
+                                dtype=_dtype(params),
+                                device=params.get("device", "cuda")),
+                            prob_thresh=params.get("prob_thresh", 0.5))
+    return ROIClassifierNode(
+        bus, clf,
+        image_topic=remap.get("image", "image"),
+        rects_topic=remap.get("rects", "/fcn_object_detector/rects"),
+        out_topic=remap.get("out", "/rcnn_detector/rects"))
 
 
 _NODE_TYPES = {
     "detector": _make_detector,
     "point_map": _make_point_map,
-    "capture": _not_ported("capture",
-                           "the label tools with capture (JPEG encoding)"),
-    "boundary_refinement": _not_ported("boundary_refinement",
-                                       "the label tools"),
-    "roi_classifier": _not_ported("roi_classifier", "the label tools"),
+    "capture": _make_capture,
+    "boundary_refinement": _make_boundary_refinement,
+    "roi_classifier": _make_roi_classifier,
 }
 
 
