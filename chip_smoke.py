@@ -245,12 +245,27 @@ plain versions are full float32.
    graph's and their probabilities within TOOLS_PROB_ATOL, at least one
    proposal kept; codes per second, the host's resize and device busy
    per call at B = 1, 16 and 168 in bf16 and float32, ncc_track's host ms
-   per 480x640 frame pair, and each stage's wall.
+   per 480x640 frame pair, and each stage's wall;
+15. compositor: the host compositor (``torchfcn.data.compositor``, numpy,
+   no cv2) on the card's host.  ``hard_pipeline``'s first batch at
+   448x448 (B = 16, seed 1) must hash to COMPOSITOR_DIGEST, the digest the
+   CPU tests record, so that the card's host composes the scenes the CPU
+   tests compose; host ms per batch and per scene (median of 4 batches)
+   and per scene at 224x224 and 288x288; ``cli train --manifest`` (no
+   --device-data) on the card from the hard sources written as PNGs, 20
+   steps of B = 8 under torch.profiler (finite losses, steps/s, the
+   device's idle share); the googlenet_3cls gate unit in the JAX package's
+   own mode (its capture configuration, host-cached training scenes, the
+   host held-out set), exact and e5m2, past HOST_GATE_MAP_LIMIT with the
+   untrained net below it, each kernel against its plain version on its
+   scoring's recorded inputs, the JAX package's recorded reading printed
+   beside it as a reference.
 
 Then one JSON line of the stream phase's numbers, one of the families'
 numbers, one of the training runs' numbers, one of the data phase's, one
 of the gates', one of the mesh phase's, one of the records phase's, one
-of the tools phase's, one JSON line of per-kernel numbers (with each
+of the tools phase's, one of the compositor phase's, one JSON line of
+per-kernel numbers (with each
 kernel's launches per dispatch of the stream graphs, per training step,
 per step fed by the compositor, per validation, per gate training step
 and per gate scoring, per rank in each run of the mesh phase, in the
@@ -2882,15 +2897,16 @@ def gate_step_profile(root: str, family: str, card: str) -> dict:
 
 
 def eval_set_against_cpu(root: str, kind: str, cfg: dict) -> dict:
-    """The first chunk of a gate's held-out set: build_eval_set's draws (a
-    cpu generator seeded 99) composed on the cpu and on the card
+    """The first chunk of a gate's held-out set: build_device_eval_set's
+    draws (a cpu generator seeded 99) composed on the cpu and on the card
     (held_against_cpu), and the card's composition with TF32 off equal to
-    the set the gate scored, cached by build_eval_set."""
-    from torchfcn.data.hardbench import build_eval_set, hard_device_pipeline
+    the set the gate scored, cached by build_device_eval_set."""
+    from torchfcn.data.hardbench import (
+        build_device_eval_set, hard_device_pipeline)
     from torchfcn.train import gates
     g, grid = gates._gate_geometry(kind, cfg)
-    images, gts, segs = build_eval_set(root, grid, classes=g["classes"],
-                                       n_images=g["eval_images"])
+    images, gts, segs = build_device_eval_set(
+        root, grid, classes=g["classes"], n_images=g["eval_images"])
     n = min(32, g["eval_images"])
     cpu, card = (hard_device_pipeline(root, grid, batch_size=n, seed=99,
                                       classes=g["classes"], device=dev)
@@ -2910,7 +2926,7 @@ def eval_set_against_cpu(root: str, kind: str, cfg: dict) -> dict:
     if not same:
         raise AssertionError(f"gates: the card's composition of the first "
                              f"{n} held-out draws differs from the set "
-                             f"build_eval_set cached")
+                             f"build_device_eval_set cached")
     return row
 
 
@@ -2962,7 +2978,7 @@ def phase_gates(counters, card: str) -> dict:
 
     from torchfcn import convert
     from torchfcn.convert import load_caffemodel, resolve_weights
-    from torchfcn.data.hardbench import build_eval_set, hard_sources
+    from torchfcn.data.hardbench import build_device_eval_set, hard_sources
     from torchfcn.models import build as build_model
     from torchfcn.serve import detector as detector_module
     from torchfcn.train import gates
@@ -3050,11 +3066,11 @@ def phase_gates(counters, card: str) -> dict:
     _, seg_cfg = gate_cfg(cfgs, GATE_SEG)
     t = time.perf_counter()
     seg = gates.segmentation_gate(root=root, seeds=(0,), device="cuda",
-                                  **seg_cfg)
+                                  data_mode="device", **seg_cfg)
     seconds["segmentation"] = time.perf_counter() - t
     g, grid = gates._gate_geometry("segmentation", seg_cfg)
-    images, _, segs = build_eval_set(root, grid, classes=g["classes"],
-                                     n_images=g["eval_images"])
+    images, _, segs = build_device_eval_set(
+        root, grid, classes=g["classes"], n_images=g["eval_images"])
     seg["step0_mIoU"] = round(gates._score_segmenter(
         "fcn32s_seg", initial_params(root, "segmentation", seg_cfg), images,
         segs, grid.num_classes), 4)
@@ -3086,7 +3102,8 @@ def phase_gates(counters, card: str) -> dict:
             scoring_inputs(inputs), \
             recorded_calls(detector_module, "vote_boxes_batched", nms):
         det = gates.detection_gate(model, root=root, seeds=(0,),
-                                   device="cuda", **det_cfg)
+                                   device="cuda", data_mode="device",
+                                   **det_cfg)
     seconds["detection"] = time.perf_counter() - t
     chunks = -(-det["eval_images"] // 32)
     steps = det_cfg["steps"]
@@ -3123,8 +3140,8 @@ def phase_gates(counters, card: str) -> dict:
                              f"chunk"),
         stem_tail=check_recorded_stem(fp8_in["stem_tail_cuda"], 32))
     g, grid = gates._gate_geometry("detection", det_cfg | {"model": model})
-    images, gts, _ = build_eval_set(root, grid, classes=g["classes"],
-                                    n_images=g["eval_images"])
+    images, gts, _ = build_device_eval_set(
+        root, grid, classes=g["classes"], n_images=g["eval_images"])
     step0, _ = gates._score_detector(
         model, initial_params(root, "detection", det_cfg | {"model": model}),
         grid, images, gts, g["classes"], {"num_classes": grid.num_classes})
@@ -4635,6 +4652,264 @@ def phase_tools(counters, card: str) -> dict:
                 timings=timings, launches=launches, seconds=seconds)
 
 
+# --- 15. compositor: the host compositor, train --manifest, host gate ---
+
+# sha256 of hard_pipeline's first batch at 448x448, B = 16, seed 1 (its
+# arrays in key order, batch_digest): recorded on the CPU by
+# tests/test_torch_host_compositor.py, so the card's host must compose the
+# very scenes the tests compose
+COMPOSITOR_DIGEST = \
+    "0b68db59ea25e33dd54914f3972e7672eb34f2403da5f49fe3f7133f416a1517"
+COMPOSITOR_BATCH, COMPOSITOR_TIMED = 16, 4
+COMPOSITOR_GEOMETRIES = ((224, 16), (288, 8))
+# train --manifest on the host compositor: steps and batch
+MANIFEST_STEPS, MANIFEST_BATCH = 20, 8
+# the googlenet_3cls gate unit on host scenes (host-cached training scenes,
+# the host held-out set) must read above this mAP, its untrained net below
+# it: below the card's reading (exact 0.1946, the untrained net 0.0, in
+# the first run of this phase; NVIDIA H100 80GB HBM3, 700.00 W; PERF.md,
+# section 6)
+HOST_GATE_MAP_LIMIT = 0.12
+# the JAX package's recorded reading of the same family (GATES_LATEST.json:
+# 96 held-out images, one seed; the file does not name its steps), printed
+# beside the port's as a reference, not a bound
+JAX_GATE_PIN = {"exact": 0.1992, "fp8": 0.1654, "n_gt": 340,
+                "eval_images": 96}
+
+
+def batch_digest(batch: dict) -> str:
+    """sha256 over a batch's arrays, in key order, each key then its
+    bytes."""
+    import hashlib
+    h = hashlib.sha256()
+    for k in sorted(batch):
+        h.update(k.encode())
+        h.update(np.ascontiguousarray(batch[k]).tobytes())
+    return h.hexdigest()
+
+
+def host_compositor_cost(root: str, card: str) -> dict:
+    """hard_pipeline on the host: its first batch at 448x448 (B = 16, seed
+    1) against COMPOSITOR_DIGEST, host ms per batch and per scene (median
+    of COMPOSITOR_TIMED batches), and per scene at the other gate
+    geometries."""
+    from torchfcn.core.config import GridConfig
+    from torchfcn.data.hardbench import hard_pipeline, hard_sources
+    t = time.perf_counter()
+    hard_sources(root)
+    sources_s = time.perf_counter() - t
+    pipe = hard_pipeline(root, GridConfig(NET, NET, 16, 4),
+                         batch_size=COMPOSITOR_BATCH, seed=1)
+    walls, digest = [], None
+    for _ in range(COMPOSITOR_TIMED):
+        t = time.perf_counter()
+        batch = pipe.batch(COMPOSITOR_BATCH)
+        walls.append(time.perf_counter() - t)
+        digest = digest or batch_digest(batch)
+    if digest != COMPOSITOR_DIGEST:
+        raise AssertionError(f"compositor: the first batch's digest {digest} "
+                             f"is not the one the CPU tests record")
+    batch_ms = 1e3 * statistics.median(walls)
+    row = dict(sources_s=sources_s, digest=digest, batch=COMPOSITOR_BATCH,
+               batch_ms=batch_ms, scene_ms={
+                   str(NET): batch_ms / COMPOSITOR_BATCH})
+    for im, stride in COMPOSITOR_GEOMETRIES:
+        pipe = hard_pipeline(root, GridConfig(im, im, stride, 4),
+                             batch_size=COMPOSITOR_BATCH, seed=1)
+        t = time.perf_counter()
+        pipe.batch(COMPOSITOR_BATCH)
+        row["scene_ms"][str(im)] = 1e3 * (time.perf_counter() - t) / \
+            COMPOSITOR_BATCH
+    log("compositor", f"hard_pipeline on the host: sources rendered in "
+        f"{sources_s:.2f} s; {NET}x{NET} B={COMPOSITOR_BATCH} seed 1: first "
+        f"batch's digest equal to the CPU tests'; {batch_ms:.1f} ms a batch "
+        f"(median of {COMPOSITOR_TIMED}), ms a scene " + ", ".join(
+            f"{k}x{k} {v:.1f}" for k, v in row["scene_ms"].items())
+        + f"; on {card}")
+    return row
+
+
+def manifest_files(root: str, work: str) -> tuple:
+    """The hard sources written as PNGs with a mask manifest (the JAX
+    package's layout): (manifest path, background paths)."""
+    from torchfcn.data.hardbench import hard_sources
+    from torchfcn.data.imageio import imwrite
+    src = hard_sources(root)
+    samples, names = src.names()
+    lines = []
+    for s in samples:
+        for name in (s.image_path, s.mask_path):
+            imwrite(os.path.join(work, name), src.imread(name))
+        x, y, w, h = (int(v) for v in s.rect)
+        lines += [f"{os.path.join(work, s.image_path)} "
+                  f"{os.path.join(work, s.mask_path)} {s.label + 1} "
+                  f"{x} {y} {w} {h}", ""]
+    backgrounds = []
+    for name in names:
+        backgrounds.append(os.path.join(work, name))
+        imwrite(backgrounds[-1], src.imread(name))
+    manifest = os.path.join(work, "train.txt")
+    with open(manifest, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return manifest, backgrounds
+
+
+def manifest_training(root: str, counters, card: str) -> dict:
+    """``cli train --manifest`` (no --device-data) on the card, fed by the
+    host compositor, under torch.profiler: finite losses, steps/s over the
+    run and the device's idle share."""
+    import shutil
+    import tempfile
+    work = tempfile.mkdtemp(prefix="torchfcn_manifest_")
+    manifest, backgrounds = manifest_files(root, work)
+    metrics = os.path.join(work, "metrics.jsonl")
+    argv = ["train", "--recipe", "bounding_box", "--manifest", manifest,
+            "--backgrounds", *backgrounds, "--max-iter", str(MANIFEST_STEPS),
+            "--batch-size", str(MANIFEST_BATCH), "--snapshot-dir",
+            os.path.join(work, "snap"), "--metrics-out", metrics,
+            "--device", "cuda"]
+    for c in counters.values():
+        c.launches = 0
+    out = []
+    t = time.perf_counter()
+    _, rows = device_profile(lambda: out.append(cli_json(argv)),
+                             "compositor: train --manifest")
+    wall = time.perf_counter() - t
+    launches = {k: c.launches for k, c in counters.items()}
+    trained = json.loads(out[-1][-1])
+    with open(metrics) as f:
+        history = [json.loads(line) for line in f]
+    shutil.rmtree(work)
+    losses = [{k: v for k, v in h.items() if k.startswith("loss")}
+              for h in history]
+    if trained["trained_to"] != MANIFEST_STEPS or not losses or not all(
+            l and np.isfinite(list(l.values())).all() for l in losses):
+        raise AssertionError(f"compositor: train --manifest gave {trained}, "
+                             f"losses {losses}")
+    busy = sum(us for _, us, _ in rows) / 1e3
+    row = dict(steps=MANIFEST_STEPS, batch=MANIFEST_BATCH, wall_s=wall,
+               steps_s=MANIFEST_STEPS / wall, losses=losses,
+               busy_ms=busy, idle_share=1 - busy / (1e3 * wall),
+               launches=launches)
+    log("compositor", f"cli train --recipe bounding_box --manifest (host "
+        f"compositor) B={MANIFEST_BATCH} 224x224, {MANIFEST_STEPS} steps in "
+        f"{wall:.2f} s under torch.profiler ({row['steps_s']:.2f} steps/s, "
+        f"model build and composition included): losses {losses}; device "
+        f"busy {busy:.1f} ms, idle {100 * row['idle_share']:.1f} %; kernel "
+        f"launches {launches} (vgg_detectnet_train has no LRN); on {card}")
+    return row
+
+
+def host_gate(root: str, counters, card: str) -> dict:
+    """The googlenet_3cls gate unit in the JAX package's own mode: its
+    capture configuration (seed 0) trained on host-cached scenes and scored
+    on the host held-out set, exact and e5m2; each training and scoring
+    counted, each kernel held against its plain version on the scoring's
+    recorded inputs; the untrained net's mAP on the same set."""
+    from torchfcn.serve import detector as detector_module
+    from torchfcn.train import gates
+    cfgs = gates.bench_gate_configs("bench")
+    _, cfg = gate_cfg(cfgs, GATE_DET)
+    model = cfg.pop("model")
+    g, grid = gates._gate_geometry("detection", cfg | {"model": model})
+    seconds = {}
+    t = time.perf_counter()
+    gates._cached_host_batches(root, grid, classes=g["classes"],
+                               batch=g["batch"], n_cached=g["n_cached"],
+                               seed=1000, log=lambda m: None)
+    seconds["compose_train"] = time.perf_counter() - t
+    t = time.perf_counter()
+    images, gts, _ = gates.held_out_set(root, grid, g["classes"],
+                                        g["eval_images"])
+    seconds["compose_eval"] = time.perf_counter() - t
+    scenes = g["n_cached"] * g["batch"] + g["eval_images"]
+    trains, scorings, nms, inputs = [], [], [], []
+    t = time.perf_counter()
+    with counted_calls(gates, "_train_hard", counters, trains), \
+            counted_calls(gates, "_score_detector", counters, scorings), \
+            scoring_inputs(inputs), \
+            recorded_calls(detector_module, "vote_boxes_batched", nms):
+        det = gates.detection_gate(model, root=root, seeds=(0,),
+                                   device="cuda", **cfg)
+    seconds["unit"] = time.perf_counter() - t
+    seconds.update(train=det["train_s"], eval=det["eval_s"])
+    chunks = -(-det["eval_images"] // 32)
+    per_step = {k: v / cfg["steps"] for k, v in trains[0].items()}
+    exact_l, fp8_l = scorings
+    if per_step["lrn"] != 1 or per_step["lrn_maxpool"] != 1:
+        raise AssertionError(f"compositor: LRN kernels launched {per_step} "
+                             f"times a training step, not once each")
+    if exact_l["group_rects"] != chunks or fp8_l["group_rects"] != chunks \
+            or fp8_l["stem_tail"] != chunks:
+        raise AssertionError(f"compositor: scorings launched {exact_l} / "
+                             f"{fp8_l} in {chunks} chunks")
+    first = nms[0]
+    rects = first["propose_boxes"].float().contiguous().clone()
+    valid = first["valid"].contiguous().clone()
+    if not bool(valid.any()):
+        raise AssertionError("compositor: the trained model's first scoring "
+                             "chunk has no valid NMS candidate")
+    exact_in, fp8_in = inputs
+    against_plain = dict(
+        group_rects=dict(shape=list(rects.shape), valid_candidates=int(
+            valid.sum()), **check_group_rects(
+                rects, valid, f"the host-trained {model}'s first scoring "
+                f"chunk ({int(valid.sum())} valid candidates)", timed=False,
+                group_threshold=first["group_threshold"], eps=first["eps"])),
+        **check_recorded_lrn(exact_in, 32, "compositor",
+                             f"the host-trained {model}'s first exact "
+                             f"scoring chunk"),
+        stem_tail=check_recorded_stem(fp8_in["stem_tail_cuda"], 32,
+                                      "compositor"))
+    step0, _ = gates._score_detector(
+        model, initial_params(root, "detection", cfg | {"model": model}),
+        grid, images, gts, g["classes"], {"num_classes": grid.num_classes})
+    det.update(step0_mAP=round(step0, 4),
+               steps_s=cfg["steps"] / det["train_s"],
+               launches_per_train_step=per_step,
+               scoring_launches={"exact": exact_l, "fp8": fp8_l},
+               scoring_chunks=chunks, against_plain=against_plain,
+               seconds=seconds, scenes=scenes,
+               host_s_per_scene=(seconds["compose_train"]
+                                 + seconds["compose_eval"]) / scenes,
+               jax_pin=JAX_GATE_PIN)
+    log("compositor", f"gate unit {model} in the JAX package's mode: "
+        f"{g['n_cached']} batches of {g['batch']} host scenes composed and "
+        f"cached in {seconds['compose_train']:.1f} s, {g['eval_images']} "
+        f"held-out host scenes in {seconds['compose_eval']:.1f} s "
+        f"({1e3 * det['host_s_per_scene']:.1f} ms a scene); {cfg['steps']} "
+        f"steps lr {cfg['lr']:g} in {det['train_s']} s; mAP exact "
+        f"{det['exact']['mAP']} ({det['n_det']} detections, {det['n_gt']} "
+        f"boxes), fp8 {det['fp8']['mAP']}, step 0 {det['step0_mAP']}; limit "
+        f"{HOST_GATE_MAP_LIMIT}; the JAX package's recorded reading (not a "
+        f"bound): exact {JAX_GATE_PIN['exact']}, fp8 {JAX_GATE_PIN['fp8']} "
+        f"over {JAX_GATE_PIN['n_gt']} boxes of {JAX_GATE_PIN['eval_images']} "
+        f"images; unit wall {seconds['unit']:.1f} s; on {card}")
+    if not det["step0_mAP"] < HOST_GATE_MAP_LIMIT < det["exact"]["mAP"]:
+        raise AssertionError(
+            f"compositor: mAP {det['step0_mAP']} at step 0 and "
+            f"{det['exact']['mAP']} trained do not straddle the limit "
+            f"{HOST_GATE_MAP_LIMIT}")
+    return det
+
+
+def phase_compositor(counters, card: str) -> dict:
+    """The host compositor on the card's host and the paths it feeds;
+    returns their readings."""
+    import shutil
+    import tempfile
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="torchfcn_compositor_")
+    cost = host_compositor_cost(root, card)
+    manifest = manifest_training(root, counters, card)
+    gate = host_gate(root, counters, card)
+    shutil.rmtree(root)
+    seconds = time.perf_counter() - t_phase
+    log("compositor", f"phase took {seconds:.1f} s")
+    return dict(cost=cost, manifest=manifest, gate=gate,
+                limits=dict(mAP=HOST_GATE_MAP_LIMIT), seconds=seconds)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4680,6 +4955,7 @@ def main() -> int:
     mesh = phase_mesh(rng, counters, card)
     records = phase_records(counters, card)
     tools = phase_tools(counters, card)
+    compositor = phase_compositor(counters, card)
 
     meta = {
         "group_rects": ("torchfcn/csrc/group_rects.cu",
@@ -4716,6 +4992,11 @@ def main() -> int:
                         "eval_launches"][name],
                     voc_gate_scoring_launches=records["gate"][
                         "scoring_launches"][name],
+                    host_gate_train_launches_per_step=compositor["gate"][
+                        "launches_per_train_step"][name],
+                    host_gate_scoring_launches={
+                        tag: n[name] for tag, n in
+                        compositor["gate"]["scoring_launches"].items()},
                     **rows[name]) for name in counters]
     rows_voc = records["gate"]["against_plain"]
     next(k for k in kernels if k["name"] == "group_rects")["voc_gate"] = {
@@ -4736,6 +5017,7 @@ def main() -> int:
     print(json.dumps({"card": card, "mesh": mesh}), flush=True)
     print(json.dumps({"card": card, "records": records}), flush=True)
     print(json.dumps({"card": card, "tools": tools}), flush=True)
+    print(json.dumps({"card": card, "compositor": compositor}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

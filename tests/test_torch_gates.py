@@ -17,12 +17,16 @@
 * ``detection_gate`` and ``segmentation_gate`` end to end on the CPU at a
   few steps and 64x64: tpufcn's result keys, the same readings in two
   runs;
-* the host data modes raise, and so does a gate on ``device="cuda"``
-  without CUDA.
+* the host data modes ("host_cached", the default, and "host") train a
+  step on the CPU from tpufcn's scenes (the cached batch's boxes, labels
+  and valid masks equal to tpufcn's cache, under its file name), and a
+  second call reads the cache; a gate on ``device="cuda"`` without CUDA
+  raises.
 """
 
 import dataclasses
 import json
+import os
 import time as time_mod
 
 import numpy as np
@@ -32,6 +36,7 @@ import pytest
 import torch
 
 import tpufcn.models
+from tpufcn.core.config import GridConfig as JGridConfig
 from tpufcn.serve import detector as jax_det
 from tpufcn.train import evaluate as jev
 from tpufcn.train import gates as jgates
@@ -280,6 +285,8 @@ def test_warm_gate_caches_composes_missing(monkeypatch, tmp_path):
     monkeypatch.setattr(gates, "bench_gate_configs",
                         lambda tier="bench": cfgs)
     composed = []
+    monkeypatch.setattr(gates, "_cached_host_batches",
+                        lambda *a, **k: composed.append("train"))
     monkeypatch.setattr(gates, "build_eval_set",
                         lambda *a, **k: composed.append("eval"))
     import torchfcn.train.pretrain as pretrain_mod
@@ -293,28 +300,35 @@ def test_warm_gate_caches_composes_missing(monkeypatch, tmp_path):
     monkeypatch.setattr(pretrain_mod, "cached_vgg16_pretrain", fake_cached)
     out = gates.warm_gate_caches(root=str(tmp_path), log=lambda m: None,
                                  device="cpu")
-    assert sorted(composed) == ["eval", "pretrain"]
-    assert sorted(out.values()) == ["composed", "composed"]
+    # det contributes its held-out set and one seed's training scenes
+    assert sorted(composed) == ["eval", "pretrain", "train"]
+    assert sorted(out.values()) == ["composed", "composed", "composed"]
     composed.clear()
     out2 = gates.warm_gate_caches(root=str(tmp_path), log=lambda m: None,
                                   device="cpu")
-    assert composed == ["eval"]        # the fake wrote no eval npz
+    assert composed == ["eval", "train"]   # the fakes wrote no npz
     assert "warm" in out2.values()
 
 
 def test_unit_cold_probe(tmp_path):
-    from torchfcn.data.hardbench import eval_cache_path, sources_cache_path
+    """Cold while the unit's cached training scenes or its held-out set are
+    missing, at the gate's own geometry (tpufcn's probe, its file names)."""
+    from torchfcn.data.hardbench import eval_cache_path
     cfg = dict(model="googlenet_detectnet", classes=4, im=448, stride=16,
                steps=6000, n_cached=60, eval_images=128)
     root = str(tmp_path)
     assert gates._unit_cold("detection", cfg, root, 0)
-    grid = GridConfig(448, 448, stride=16, num_classes=4)
-    open(sources_cache_path(root, 4, 7), "wb").close()
+    grid = GridConfig(448, 448, stride=16, num_classes=5)
+    train = gates.train_cache_path(root, grid, classes=4, batch=16,
+                                   n_cached=60, seed=1000)
+    assert train == jgates.train_cache_path(
+        root, JGridConfig(448, 448, stride=16, num_classes=5), classes=4,
+        batch=16, n_cached=60, seed=1000)
+    open(train, "wb").close()
     assert gates._unit_cold("detection", cfg, root, 0)    # eval missing
     open(eval_cache_path(root, grid, 4, 128), "wb").close()
     assert not gates._unit_cold("detection", cfg, root, 0)
-    # scenes compose on the device in every run: no seed is colder
-    assert not gates._unit_cold("detection", cfg, root, 1)
+    assert gates._unit_cold("detection", cfg, root, 1)    # other seed
     assert gates._unit_cold("segmentation", dict(steps=1), root, 0)
     assert gates._unit_cold("pretrain", dict(classes=6, steps=4), root, 0)
     assert not gates._unit_cold("voc", {}, root, 0)
@@ -339,8 +353,7 @@ def eval_set(tmp_path_factory):
     root = str(tmp_path_factory.mktemp("gate_eval"))
     grid = GridConfig(HW, HW, stride=8, num_classes=4)
     from torchfcn.data.hardbench import build_eval_set
-    return build_eval_set(root, grid, classes=4, n_images=8, chunk=4,
-                          device="cpu")
+    return build_eval_set(root, grid, classes=4, n_images=8, chunk=4)
 
 
 def test_score_detector_matches_jax(small_specs, eval_set):
@@ -433,18 +446,54 @@ def test_gates_end_to_end_on_cpu(tmp_path):
     assert _readings(seg) == _readings(seg2)
 
 
-def test_host_modes_and_missing_cuda_raise(tmp_path):
+def test_host_modes_and_missing_cuda_raise(tmp_path, monkeypatch):
+    """"host_cached" and "host" each train one step on the CPU from the host
+    compositor's scenes: the cached batch is tpufcn's (its boxes, labels
+    and valid masks equal, under tpufcn's file name; its images and seg
+    maps within the hard sources' stated differences); a second
+    "host_cached" call reads the cache.  A gate on "cuda" without CUDA
+    raises."""
+    from tpufcn.core.config import GridConfig as JGrid
+    from torchfcn.data import hardbench
     grid = GridConfig(HW, HW, stride=8, num_classes=4)
+    root = str(tmp_path / "port")
+    kw = dict(classes=4, steps=1, batch=2, n_cached=1, seed=0,
+              with_seg=False, model_kwargs={"num_classes": 4}, device="cpu")
     for mode in ("host_cached", "host"):
-        with pytest.raises(ValueError, match="host compositor"):
-            gates._train_hard("vgg_detectnet_train", grid, str(tmp_path),
-                              classes=4, steps=1, batch=2, n_cached=1,
-                              seed=0, with_seg=False, model_kwargs=None,
-                              data_mode=mode, device="cpu")
+        state = gates._train_hard("vgg_detectnet_train", grid, root,
+                                  data_mode=mode, **kw)
+        assert state.step == 1
+    got = gates._cached_host_batches(root, grid, classes=4, batch=2,
+                                     n_cached=1, seed=1000)
+    jroot = str(tmp_path / "jax")
+    want = jgates._cached_host_batches(
+        jroot, JGrid(HW, HW, stride=8, num_classes=4), classes=4, batch=2,
+        n_cached=1, seed=1000, log=lambda m: None)
+    assert os.listdir(jroot) and set(os.listdir(jroot)) & set(
+        os.listdir(root)) >= {os.path.basename(gates.train_cache_path(
+            root, grid, classes=4, batch=2, n_cached=1, seed=1000))}
+    for k in ("rects", "labels", "valid"):
+        assert np.array_equal(got[0][k], want[0][k]), k
+    assert got[0]["seg"].dtype == want[0]["seg"].dtype == np.int32
+    assert int((got[0]["image"] != want[0]["image"]).sum()) <= 1000
+    assert int((got[0]["seg"] != want[0]["seg"]).sum()) <= 20
+
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             gates.segmentation_gate(im=HW, steps=1, batch=2, n_cached=1,
                                     eval_images=2, root=str(tmp_path))
+
+    def no_compose(*a, **k):
+        raise AssertionError("composed again")
+
+    monkeypatch.setattr(gates, "hard_pipeline", no_compose)
+    monkeypatch.setattr(hardbench, "hard_pipeline", no_compose)
+    state = gates._train_hard("vgg_detectnet_train", grid, root,
+                              data_mode="host_cached", **kw)
+    assert state.step == 1
+    with pytest.raises(ValueError, match="data_mode"):
+        gates._train_hard("vgg_detectnet_train", grid, root,
+                          data_mode="disk", **kw)
 
 
 def test_cli_prints_one_json_line(monkeypatch, capsys):

@@ -16,8 +16,9 @@ Rasterizers, over the sizes the benchmark draws:
 
 Sources: the same draws as tpufcn's for one seed (the generator's state
 after them equal), crops, masks and backgrounds equal to what tpufcn writes
-as PNGs but at the values stated.  The device pipeline and the held-out set
-compose on the CPU; the held-out set is cached and deterministic.
+as PNGs but at the values stated.  The device pipeline and the device-
+composed held-out set compose on the CPU; the set is cached and
+deterministic.
 """
 
 import os
@@ -212,18 +213,19 @@ def test_device_pipeline_and_eval_set_on_cpu(tmp_path):
     assert b["image"].shape == (4, 64, 64, 3)
     assert b["rects"].shape == (4, P.BOX_CAPACITY, 4)
     assert int(b["valid"].sum(1).min()) >= 1
-    images, gts, segs = P.build_eval_set(str(tmp_path), grid, classes=4,
-                                         n_images=10, chunk=4, device="cpu")
+    images, gts, segs = P.build_device_eval_set(
+        str(tmp_path), grid, classes=4, n_images=10, chunk=4, device="cpu")
     assert images.shape == (10, 64, 64, 3) and images.dtype == np.uint8
     assert segs.shape == (10, 64, 64) and segs.dtype == np.int32
     assert 0 < segs.max() <= 4
     assert len(gts) == 10 and sum(len(g[1]) for g in gts) >= 10
     assert gts[0][0].dtype == np.float32 and gts[0][1].dtype == np.int32
-    assert os.path.isfile(P.eval_cache_path(str(tmp_path), grid, 4, 10))
+    assert os.path.isfile(P.device_eval_cache_path(str(tmp_path), grid, 4,
+                                                   10))
     # the cache, and a fresh root (the same CPU draws), give the same set
     for root in (tmp_path, tmp_path / "fresh"):
-        again = P.build_eval_set(str(root), grid, classes=4, n_images=10,
-                                 chunk=4, device="cpu")
+        again = P.build_device_eval_set(str(root), grid, classes=4,
+                                        n_images=10, chunk=4, device="cpu")
         assert np.array_equal(again[0], images)
         assert np.array_equal(again[2], segs)
         assert all(np.array_equal(a[0], g[0]) and np.array_equal(a[1], g[1])

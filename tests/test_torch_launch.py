@@ -271,10 +271,9 @@ TOOL_NODES = {
 
 @pytest.mark.parametrize("ntype", ["capture", "boundary_refinement",
                                    "roi_classifier"])
-def test_unported_node_types_raise(ntype, tmp_path):
+def test_tool_node_types_build_and_run(ntype, tmp_path):
     """The label tools' node types build on the CPU and run on two synced
-    frames; an unknown type raises KeyError.  (The name is from when these
-    types raised NotImplementedError; the ids are kept.)"""
+    frames; an unknown type raises KeyError."""
     from torchfcn.serve.stream import RectsMsg
     params, image, rect, out = TOOL_NODES[ntype]
     params = dict(params, out_dir=str(tmp_path / "cap"))

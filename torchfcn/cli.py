@@ -13,8 +13,8 @@ package's flags plus ``--device``.  Subcommands so far:
   gates     the tracked accuracy gates
   pretrain  the VGG16 backbone pretrain
   train     train a recipe from record shards (``--records``) or from
-            scenes composed on the device (``--manifest`` with
-            ``--device-data``)
+            scenes composed on the host (``--manifest``) or on the device
+            (``--manifest`` with ``--device-data``)
   records   build record shards from a manifest, or inspect them
   voc       Pascal VOC annotations -> manifests
   eval      held-out mAP (``--format voc|detection``) or mean-IoU
@@ -30,9 +30,8 @@ default) or on the CPU (``--device cpu``); ``records``, ``voc`` and
 ``convert`` run on the host, and so do the tracking and clustering of
 ``refine`` and ``rank`` (their CNN codes run on ``--device``).  Not
 ported yet (ROADMAP Queue 1): ``--video`` (with tpufcn's ``--video-stride``
-and ``--max-frames``), ``--overlay-dir``, ``--workers``,
-``--inspect-data`` and ``--manifest`` without ``--device-data``, and the
-other subcommands.
+and ``--max-frames``), ``--overlay-dir``, ``--workers`` (the host worker
+pool), ``--inspect-data`` and the other subcommands.
 
     python -m torchfcn.cli detect frame.png --model googlenet_detectnet
     python -m torchfcn.cli launch examples/fcn_point_map.launch.json \
@@ -66,16 +65,17 @@ def _log(msg: str) -> None:
     print(msg, file=sys.stderr, flush=True)
 
 
-HOST_COMPOSITOR_MISSING = ("the host compositor is not ported yet: ROADMAP "
-                           "Queue 1, record and VOC data with the host "
-                           "compositor (pass --device-data)")
+WORKERS_MISSING = ("--workers composes in a pool of host processes, which "
+                   "is not ported yet: ROADMAP Queue 1, the worker pool "
+                   "(ParallelCompositePipeline)")
 INSPECT_MISSING = ("--inspect-data draws rect overlays, which are not "
                    "ported yet: ROADMAP Queue 1, viz.py and the overlay")
 
 
 def _cmd_train(args):
     """Train a recipe (``tpufcn/cli.py::_cmd_train``) from record shards or
-    from scenes composed on the device.  The layout is the recipe's
+    from scenes composed on the host or the device.  The layout is the
+    recipe's
     ``mesh`` (every recipe is 1 x 1, as in tpufcn); a process started in a
     larger world raises."""
     import dataclasses
@@ -87,13 +87,11 @@ def _cmd_train(args):
     from torchfcn.train.trainer import Trainer
 
     if args.workers:
-        raise NotImplementedError(HOST_COMPOSITOR_MISSING)
+        raise NotImplementedError(WORKERS_MISSING)
     if args.inspect_data:
         raise NotImplementedError(INSPECT_MISSING)
     if not args.records and not args.manifest:
         raise SystemExit("one of --manifest or --records is required")
-    if args.manifest and not args.records and not args.device_data:
-        raise NotImplementedError(HOST_COMPOSITOR_MISSING)
 
     cfg = recipes.get(args.recipe)
     if args.max_iter:
@@ -133,16 +131,22 @@ def _cmd_train(args):
         pipe = RecordTrainPipeline(args.records, cfg.grid,
                                    batch_size=cfg.data.batch_size)
     else:
-        from torchfcn.data.device_compositor import DeviceCompositePipeline
         from torchfcn.data.manifest import (
             read_mask_manifest, snapshot_label_path)
         samples = read_mask_manifest(
             args.manifest, snapshot_label_manifest=snapshot_label_path(
                 os.path.join(cfg.snapshot_dir, "labels")))
-        pipe = DeviceCompositePipeline.from_samples(
-            samples, cfg.grid, cfg.data, backgrounds=args.backgrounds,
-            imread=imread, resize=resize_linear_u8, device=args.device,
-            seed=cfg.seed)
+        if args.device_data:
+            from torchfcn.data.device_compositor import (
+                DeviceCompositePipeline)
+            pipe = DeviceCompositePipeline.from_samples(
+                samples, cfg.grid, cfg.data, backgrounds=args.backgrounds,
+                imread=imread, resize=resize_linear_u8, device=args.device,
+                seed=cfg.seed)
+        else:
+            from torchfcn.data.pipeline import CompositeTrainPipeline
+            pipe = CompositeTrainPipeline(samples, cfg.grid, cfg.data,
+                                          backgrounds=args.backgrounds)
 
     validator = None
     if args.eval_every:
@@ -247,12 +251,11 @@ def _eval_seg(args):
     from torchfcn.data.imageio import imread_or_none
     from torchfcn.data.manifest import (
         bgr2gray_u8, read_label_map_snapshot, read_mask_manifest)
-    from torchfcn.data.raster import resize_linear_u8
+    from torchfcn.data.raster import resize_linear_u8, resize_nearest_u8
     from torchfcn.models import get_spec
     from torchfcn.serve.detector import serving_model
     from torchfcn.serve.segment import Segmenter
     from torchfcn.train.evaluate import evaluate_segmentation
-    from torchfcn.train.validate import _resize_nearest
 
     label_map = (read_label_map_snapshot(args.labels) if args.labels
                  else None)
@@ -270,7 +273,7 @@ def _eval_seg(args):
         img, msk = imread_or_none(s.image_path), imread_or_none(s.mask_path)
         if img is None or msk is None:
             continue
-        msk = _resize_nearest(bgr2gray_u8(msk), (W, H))
+        msk = resize_nearest_u8(bgr2gray_u8(msk), (W, H))
         gts.append(np.where(msk > 0, s.label, 0))
         preds.append(seg(resize_linear_u8(img, (W, H))[None])[0].cpu()
                      .numpy())
@@ -671,8 +674,9 @@ def main(argv=None):
     ga.add_argument("--root", default=DEFAULT_ROOT,
                     help="work and cache directory of the hard benchmark")
     ga.add_argument("--warm-caches", action="store_true",
-                    help="render the sources, compose the held-out sets "
-                         "and run the pretrain, without the gates")
+                    help="compose the held-out sets and each seed's "
+                         "cached training scenes and run the pretrain, "
+                         "without the gates")
     ga.add_argument("--tier", choices=("bench", "full"), default="bench",
                     help="'bench': the capture tier; 'full': the batch-16, "
                          "6k-step calibration tier")
@@ -788,10 +792,11 @@ def main(argv=None):
     pf.set_defaults(fn=_cmd_profile)
 
     t = sub.add_parser("train", help="train a recipe from record shards or "
-                                     "from scenes composed on the device")
+                                     "from composed scenes")
     t.add_argument("--recipe", default="bounding_box")
     t.add_argument("--manifest", default=None,
-                   help="mask manifest of the crops (with --device-data)")
+                   help="mask manifest of the crops, composed on the host "
+                        "(or the device, --device-data)")
     t.add_argument("--records", default=None,
                    help="train from record shards (the prefix given to "
                         "`records --out`) instead of composed scenes")
@@ -808,14 +813,15 @@ def main(argv=None):
                    help="initial weights: a .caffemodel (lenient, by name) "
                         "or a Trainer snapshot directory")
     t.add_argument("--workers", type=int, default=0,
-                   help="host compositor workers (not ported: raises)")
+                   help="host compositor worker processes (not ported: "
+                        "raises)")
     t.add_argument("--warmup", type=int, default=0, metavar="N",
                    help="linear lr warmup over the first N steps")
     t.add_argument("--inspect-data", default=None, metavar="DIR",
                    help="data dry-run as overlay PNGs (not ported: raises)")
     t.add_argument("--device-data", action="store_true",
-                   help="compose scenes on the device (the only data path "
-                        "ported)")
+                   help="compose scenes on the device instead of the "
+                        "host")
     t.add_argument("--cache", type=int, default=0,
                    help="build N batches once and train epochs over them "
                         "on the device")

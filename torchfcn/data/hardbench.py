@@ -13,10 +13,13 @@ the 384x512 backgrounds, cached as one ``.npz`` under ``root``.  Every
 numpy draw comes in the JAX package's order, so one ``dataset_seed`` gives
 the same sizes, positions, colours and noise.
 
-Scenes are composed only by the port's device compositor
-(``hard_device_pipeline``); the held-out set (``build_eval_set``) too, from
-draws of a CPU generator, so that the card and the CPU compose the same
-set.  The JAX package's host compositor (``hard_pipeline``) is not ported.
+Scenes are composed on the host (``hard_pipeline``: the port's
+``CompositeTrainPipeline`` reading the sources from memory under the JAX
+package's file names, so that one seed composes the JAX package's scenes)
+or on the device (``hard_device_pipeline``).  The held-out set
+(``build_eval_set``) is the JAX package's: host scenes, under its cache
+name.  ``build_device_eval_set`` composes one on the device from draws of a
+CPU generator, so that the card and the CPU compose the same set.
 """
 
 from __future__ import annotations
@@ -135,12 +138,12 @@ def make_hard_dataset(rng: np.random.Generator, classes: int = 4,
                       size_range: Tuple[int, int] = (32, 88)):
     """The object sources: one instance per 192x256 clutter field,
     ``per_class`` instances per class with per-instance size, aspect,
-    colour and period.  -> (crops [(h, w, 3) uint8], masks [(h, w) uint8],
-    labels [int]): each source cut to its object's rect, as the JAX
-    package's ``CropLibrary.from_samples`` reads it back."""
+    colour and period.  -> (images [(192, 256, 3) uint8], masks [(192, 256)
+    uint8], rects [(x, y, w, h)], labels [int]): what the JAX package
+    writes as PNGs and lists as samples."""
     if classes > len(CLASS_DEFS):
         raise ValueError(f"classes <= {len(CLASS_DEFS)} supported")
-    crops, masks, labels = [], [], []
+    images, masks, rects, labels = [], [], [], []
     H, W = SOURCE_HW
     for c in range(classes):
         shape, texture = CLASS_DEFS[c]
@@ -152,10 +155,13 @@ def make_hard_dataset(rng: np.random.Generator, classes: int = 4,
             y = int(rng.integers(0, H - h))
             patch, msk = render_object(shape, texture, h, w, rng)
             _paste(img, patch, msk, x, y)
-            crops.append(img[y:y + h, x:x + w].copy())
-            masks.append(msk)
+            mask = np.zeros((H, W), np.uint8)
+            mask[y:y + h, x:x + w] = msk
+            images.append(img)
+            masks.append(mask)
+            rects.append((x, y, w, h))
             labels.append(c)
-    return crops, masks, labels
+    return images, masks, rects, labels
 
 
 def make_hard_backgrounds(rng: np.random.Generator, classes: int = 4,
@@ -192,10 +198,15 @@ def hard_data_config(batch_size: int = 16) -> DataConfig:
 
 @dataclasses.dataclass
 class HardSources:
-    """The rendered sources: crops zero-padded to the largest (K, Hc, Wc,
-    3) uint8 with masks (K, Hc, Wc) bool, their (h, w) sizes and labels,
-    and the backgrounds (N, 384, 512, 3) uint8."""
+    """The rendered sources: the object sources (K, 192, 256, 3) uint8 with
+    their masks (K, 192, 256) uint8, rects (K, 4) and labels; the same
+    cut to their rects, crops zero-padded to the largest (K, Hc, Wc, 3)
+    uint8 with masks (K, Hc, Wc) bool and their (h, w) sizes; and the
+    backgrounds (N, 384, 512, 3) uint8."""
 
+    sources: np.ndarray
+    source_masks: np.ndarray
+    rects: np.ndarray
     crops: np.ndarray
     masks: np.ndarray
     sizes: np.ndarray
@@ -203,19 +214,45 @@ class HardSources:
     backgrounds: np.ndarray
 
     @classmethod
-    def from_lists(cls, crops, masks, labels, backgrounds) -> "HardSources":
-        hc = max(c.shape[0] for c in crops)
-        wc = max(c.shape[1] for c in crops)
-        padded = np.zeros((len(crops), hc, wc, 3), np.uint8)
-        pmasks = np.zeros((len(crops), hc, wc), bool)
-        sizes = np.zeros((len(crops), 2), np.int64)
-        for i, (c, m) in enumerate(zip(crops, masks)):
-            h, w = c.shape[:2]
-            padded[i, :h, :w] = c
-            pmasks[i, :h, :w] = m > 0
+    def from_lists(cls, images, masks, rects, labels,
+                   backgrounds) -> "HardSources":
+        hc = max(r[3] for r in rects)
+        wc = max(r[2] for r in rects)
+        padded = np.zeros((len(images), hc, wc, 3), np.uint8)
+        pmasks = np.zeros((len(images), hc, wc), bool)
+        sizes = np.zeros((len(images), 2), np.int64)
+        for i, (img, m, (x, y, w, h)) in enumerate(zip(images, masks, rects)):
+            padded[i, :h, :w] = img[y:y + h, x:x + w]
+            pmasks[i, :h, :w] = m[y:y + h, x:x + w] > 0
             sizes[i] = (h, w)
-        return cls(padded, pmasks, sizes, np.asarray(labels, np.int64),
+        return cls(np.stack(images), np.stack(masks),
+                   np.asarray(rects, np.int64), padded, pmasks, sizes,
+                   np.asarray(labels, np.int64),
                    np.asarray(backgrounds, np.uint8))
+
+    def names(self):
+        """(the object sources as ``MaskSample``s, the backgrounds' names):
+        the JAX package's file names, which ``imread`` reads from memory."""
+        from torchfcn.data.manifest import MaskSample
+        samples, seen = [], np.zeros(len(CLASS_DEFS), np.int64)
+        for rect, c in zip(self.rects, self.labels):
+            stem = f"hard_c{c}_{seen[c]:02d}"
+            seen[c] += 1
+            samples.append(MaskSample(f"{stem}.png", f"{stem}_mask.png",
+                                      int(c), rect.astype(np.int32)))
+        return samples, [f"hard_bg{i:02d}.png"
+                         for i in range(len(self.backgrounds))]
+
+    def imread(self, name: str) -> np.ndarray:
+        """The array that the JAX package writes as the PNG ``name`` (masks
+        as one channel)."""
+        stem = name[:-len(".png")]
+        if stem.startswith("hard_bg"):
+            return self.backgrounds[int(stem[len("hard_bg"):])]
+        c, k = stem[len("hard_c"):].split("_")[:2]
+        i = int(np.flatnonzero(self.labels == int(c))[int(k)])
+        return (self.source_masks if stem.endswith("_mask")
+                else self.sources)[i]
 
     def library(self):
         """The crops as the compositor's ``CropLibrary`` (on the CPU)."""
@@ -234,7 +271,7 @@ class HardSources:
 
 def sources_cache_path(root: str, classes: int, dataset_seed: int) -> str:
     return os.path.join(root, f"hard_sources_c{classes}_seed{dataset_seed}"
-                              f".npz")
+                              f"_v2.npz")
 
 
 def hard_sources(root: str, classes: int = 4,
@@ -248,14 +285,27 @@ def hard_sources(root: str, classes: int = 4,
             return HardSources(**{f.name: z[f.name]
                                   for f in dataclasses.fields(HardSources)})
     rng = np.random.default_rng(dataset_seed)
-    crops, masks, labels = make_hard_dataset(rng, classes=classes)
+    images, masks, rects, labels = make_hard_dataset(rng, classes=classes)
     backgrounds = make_hard_backgrounds(rng, classes=classes)
-    src = HardSources.from_lists(crops, masks, labels, backgrounds)
+    src = HardSources.from_lists(images, masks, rects, labels, backgrounds)
     os.makedirs(root, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp.npz"
     np.savez(tmp, **dataclasses.asdict(src))
     os.replace(tmp, path)        # no reader sees a half-written file
     return src
+
+
+def hard_pipeline(root: str, grid: GridConfig, batch_size: int = 16,
+                  seed: int = 1, classes: int = 4, dataset_seed: int = 7):
+    """The host compositor over the hard sources (``hard_data_config``,
+    ``BOX_CAPACITY`` boxes a scene): the JAX package's ``hard_pipeline``,
+    the sources read from memory."""
+    from torchfcn.data.pipeline import CompositeTrainPipeline
+    src = hard_sources(root, classes, dataset_seed)
+    samples, backgrounds = src.names()
+    return CompositeTrainPipeline(
+        samples, grid, hard_data_config(batch_size), backgrounds=backgrounds,
+        box_capacity=BOX_CAPACITY, imread=src.imread, seed=seed)
 
 
 def hard_device_pipeline(root: str, grid: GridConfig, batch_size: int = 16,
@@ -274,28 +324,77 @@ def hard_device_pipeline(root: str, grid: GridConfig, batch_size: int = 16,
 
 def eval_cache_path(root: str, grid: GridConfig, classes: int,
                     n_images: int, seed: int = 99) -> str:
-    """Where the held-out set of ``build_eval_set`` is cached (the gate
-    scheduler probes it to decide whether a gate unit pays first-touch
-    costs).  The name says "device": the set is composed by the device
-    compositor, not the JAX package's host one, whose sets differ."""
+    """Where the held-out set of ``build_eval_set`` is cached, under the JAX
+    package's name (the gate scheduler probes it to decide whether a gate
+    unit pays first-touch costs)."""
+    return os.path.join(
+        root, f"hard_eval_{grid.im_height}x{grid.im_width}_s{grid.stride}"
+              f"_c{classes}_n{n_images}_seed{seed}.npz")
+
+
+def device_eval_cache_path(root: str, grid: GridConfig, classes: int,
+                           n_images: int, seed: int = 99) -> str:
+    """Where the held-out set of ``build_device_eval_set`` is cached."""
     return os.path.join(
         root, f"hard_eval_device_{grid.im_height}x{grid.im_width}"
               f"_s{grid.stride}_c{classes}_n{n_images}_seed{seed}.npz")
 
 
+def _gts(rects, labels, valid) -> list:
+    """Per image (corners float32 (M, 4), labels int32 (M,)) of its valid
+    boxes."""
+    return [(np.concatenate([r[v][:, :2], r[v][:, :2] + r[v][:, 2:4]],
+                            axis=1), lab[v])
+            for r, lab, v in zip(rects, labels, valid)]
+
+
+def _load_eval_set(cache: str, n_images: int):
+    with np.load(cache, allow_pickle=False) as z:
+        gts = [(z[f"gt_c{i}"], z[f"gt_l{i}"]) for i in range(n_images)]
+        return z["images"], gts, z["segs"]
+
+
+def _save_eval_set(cache: str, images, gts, segs) -> None:
+    os.makedirs(os.path.dirname(cache), exist_ok=True)
+    tmp = f"{cache}.{os.getpid()}.tmp.npz"
+    np.savez(tmp, images=images, segs=segs,
+             **{f"gt_c{i}": g[0] for i, g in enumerate(gts)},
+             **{f"gt_l{i}": g[1] for i, g in enumerate(gts)})
+    os.replace(tmp, cache)       # no reader sees a half-written file
+
+
 def build_eval_set(root: str, grid: GridConfig, classes: int = 4,
-                   n_images: int = 128, seed: int = 99, chunk: int = 32,
-                   device="cuda"):
-    """Fixed held-out set: scenes composed on ``device`` from draws of a
-    CPU generator seeded with ``seed`` (so the card and the CPU compose the
-    same set, up to pixels on a mask's threshold), cached at
-    ``eval_cache_path``.  Returns (images (N, H, W, 3) uint8, gts [per
-    image (corners float32, labels int32)], segs (N, H, W) int32)."""
+                   n_images: int = 128, seed: int = 99, chunk: int = 32):
+    """The fixed held-out set of the JAX package: ``n_images`` scenes of
+    ``hard_pipeline(seed=seed)`` (composed in batches of up to ``chunk``),
+    cached at ``eval_cache_path``.  Returns (images (N, H, W, 3) uint8, gts
+    [per image (corners float32, labels int32)], segs (N, H, W) int32)."""
     cache = eval_cache_path(root, grid, classes, n_images, seed)
     if os.path.isfile(cache):
-        with np.load(cache, allow_pickle=False) as z:
-            gts = [(z[f"gt_c{i}"], z[f"gt_l{i}"]) for i in range(n_images)]
-            return z["images"], gts, z["segs"]
+        return _load_eval_set(cache, n_images)
+    pipe = hard_pipeline(root, grid, batch_size=chunk, seed=seed,
+                         classes=classes)
+    images, segs, gts = [], [], []
+    for i in range(0, n_images, chunk):
+        b = pipe.batch(min(chunk, n_images - i))
+        images.append(b["image"])
+        segs.append(b["seg"])
+        gts += _gts(b["rects"], b["labels"], b["valid"])
+    images, segs = np.concatenate(images), np.concatenate(segs)
+    _save_eval_set(cache, images, gts, segs)
+    return images, gts, segs
+
+
+def build_device_eval_set(root: str, grid: GridConfig, classes: int = 4,
+                          n_images: int = 128, seed: int = 99,
+                          chunk: int = 32, device="cuda"):
+    """A fixed held-out set composed on ``device`` from draws of a CPU
+    generator seeded with ``seed`` (so the card and the CPU compose the
+    same set, up to pixels on a mask's threshold), cached at
+    ``device_eval_cache_path``; returns what ``build_eval_set`` does."""
+    cache = device_eval_cache_path(root, grid, classes, n_images, seed)
+    if os.path.isfile(cache):
+        return _load_eval_set(cache, n_images)
     pipe = hard_device_pipeline(root, grid, batch_size=chunk, seed=seed,
                                 classes=classes, device=device)
     pipe.generator = torch.Generator().manual_seed(seed)
@@ -305,15 +404,7 @@ def build_eval_set(root: str, grid: GridConfig, classes: int = 4,
         b = {k: v.cpu().numpy() for k, v in b.items()}
         images.append(b["image"])
         segs.append(b["seg"])
-        for r, lab, v in zip(b["rects"], b["labels"], b["valid"]):
-            r = r[v]
-            gts.append((np.concatenate([r[:, :2], r[:, :2] + r[:, 2:4]],
-                                       axis=1), lab[v]))
+        gts += _gts(b["rects"], b["labels"], b["valid"])
     images, segs = np.concatenate(images), np.concatenate(segs)
-    os.makedirs(root, exist_ok=True)
-    tmp = f"{cache}.{os.getpid()}.tmp.npz"
-    np.savez(tmp, images=images, segs=segs,
-             **{f"gt_c{i}": g[0] for i, g in enumerate(gts)},
-             **{f"gt_l{i}": g[1] for i, g in enumerate(gts)})
-    os.replace(tmp, cache)
+    _save_eval_set(cache, images, gts, segs)
     return images, gts, segs

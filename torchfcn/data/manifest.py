@@ -199,10 +199,11 @@ def need_decoder(fn, what: str):
 
 
 def bgr2gray_u8(img: np.ndarray) -> np.ndarray:
-    """cv.cvtColor(img, COLOR_BGR2GRAY) of a uint8 BGR image, in cv's
-    fixed-point arithmetic."""
+    """cv.cvtColor(img, COLOR_BGR2GRAY) of a uint8 BGR image, in cv2 5.0's
+    fixed-point arithmetic (15 fractional bits, rounded); equal on every
+    colour."""
     b, g, r = (img[..., i].astype(np.int64) for i in range(3))
-    return ((b * 1868 + g * 9617 + r * 4899 + (1 << 13)) >> 14).astype(
+    return ((b * 3735 + g * 19235 + r * 9798 + (1 << 14)) >> 15).astype(
         np.uint8)
 
 

@@ -1,6 +1,6 @@
 """Batch sources of the port (``tpufcn/data/pipeline.py``): fixed-capacity
-box padding, batches read from record shards, the device batch cache and a
-prefetching thread.
+box padding, batches composed on the host (``CompositeTrainPipeline``) or
+read from record shards, the device batch cache and a prefetching thread.
 
 The JAX package's cache stacks N batches and its Trainer scans them in one
 dispatch.  The port's Trainer runs one step per batch, so its cache moves N
@@ -10,16 +10,21 @@ sequence of steps.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import queue
 import threading
-from typing import Callable, Dict, Iterator, Optional
+from typing import Callable, Dict, Iterator, Optional, Sequence
 
 import numpy as np
 
-from torchfcn.core.config import GridConfig
-from torchfcn.data.raster import resize_linear_u8
+from torchfcn.core.config import DataConfig, GridConfig
+from torchfcn.data.compositor import (
+    Compositor, random_augmentation, resize_image_and_rects)
+from torchfcn.data.imageio import imread_or_none
+from torchfcn.data.manifest import MaskSample
+from torchfcn.data.raster import resize_linear_u8, resize_nearest_u8
 from torchfcn.data.records import RecordReader
 
 
@@ -35,6 +40,100 @@ def pad_boxes(rects, labels, capacity: int):
         out_l[:k] = np.asarray(labels, np.int32)[:k]
         out_v[:k] = True
     return out_r, out_l, out_v
+
+
+class CompositeTrainPipeline:
+    """Scenes composed on the host for detection training
+    (``tpufcn/data/pipeline.py``): each scene a random half-crop of a
+    background with ``num_compose`` objects pasted (``Compositor``), then
+    ``random_augmentation`` and the cubic resize to the grid's size.
+    Yields host batches {image uint8 (B, H, W, 3), rects, labels, valid,
+    seg int32 (B, H, W)}.  ``imread`` decodes both the samples' files and
+    the backgrounds (default ``imageio.imread_or_none``); backgrounds are
+    decoded once."""
+
+    def __init__(self,
+                 samples: Sequence[MaskSample],
+                 grid: GridConfig,
+                 data_cfg: Optional[DataConfig] = None,
+                 backgrounds: Optional[Sequence[str]] = None,
+                 box_capacity: int = 8,
+                 imread=imread_or_none,
+                 seed: int = 0):
+        self.cfg = data_cfg or DataConfig()
+        self.grid = grid
+        self.box_capacity = box_capacity
+        # the reference reads the background again every iteration
+        # (data_argumentation_layer.py:86); consumers only read it (the
+        # compositor copies before pasting)
+        self.imread = functools.lru_cache(maxsize=64)(lambda p: imread(p))
+        self.samples = list(samples)
+        self.backgrounds = list(backgrounds or [])
+        self.compositor = Compositor(
+            self.samples,
+            iou_thresh=self.cfg.compose_iou_thresh,
+            max_trials=self.cfg.compose_max_trials,
+            scale_range=self.cfg.scale_range,
+            imread=imread)
+        self.rng = np.random.default_rng(seed)
+
+    def _background(self) -> np.ndarray:
+        """Random half-crop of a background frame (reference
+        data_argumentation_layer.py:86-96); a dataset image when no
+        backgrounds are configured."""
+        rng = self.rng
+        if self.backgrounds:
+            path = self.backgrounds[int(rng.integers(
+                0, len(self.backgrounds)))]
+        else:
+            s = self.samples[int(rng.integers(0, len(self.samples)))]
+            path = s.image_path
+        img = self.imread(path)
+        if img is None:
+            raise FileNotFoundError(path)
+        h, w = img.shape[0] // 2, img.shape[1] // 2
+        x = int(rng.integers(0, max(w, 1)))
+        y = int(rng.integers(0, max(h, 1)))
+        x = min(x, img.shape[1] - w)
+        y = min(y, img.shape[0] - h)
+        return img[y:y + h, x:x + w]
+
+    def sample_scene(self):
+        bg = self._background()
+        num = int(self.rng.integers(self.cfg.num_compose[0],
+                                    self.cfg.num_compose[1] + 1))
+        scene = self.compositor.compose(num, bg, self.rng)
+        img, rects, label_map = random_augmentation(
+            scene.image, [list(r) for r in scene.rects], self.rng,
+            label_map=scene.mask,
+            enable_zoom=len(scene.rects) == 1,
+            rotate=self.cfg.rotate)
+        img, rects = resize_image_and_rects(
+            img, rects, (self.grid.im_width, self.grid.im_height))
+        if label_map is None:
+            label_map = np.zeros(img.shape[:2], np.uint8)
+        seg = resize_nearest_u8(label_map,
+                                (self.grid.im_width, self.grid.im_height))
+        return img, rects, scene.labels[:len(rects)], seg
+
+    def batch(self, batch_size: int) -> Dict[str, np.ndarray]:
+        H, W = self.grid.im_height, self.grid.im_width
+        images = np.zeros((batch_size, H, W, 3), np.uint8)
+        rects = np.zeros((batch_size, self.box_capacity, 4), np.float32)
+        labels = np.zeros((batch_size, self.box_capacity), np.int32)
+        valid = np.zeros((batch_size, self.box_capacity), bool)
+        seg = np.zeros((batch_size, H, W), np.int32)
+        for i in range(batch_size):
+            img, r, l, m = self.sample_scene()
+            images[i] = img
+            rects[i], labels[i], valid[i] = pad_boxes(r, l, self.box_capacity)
+            seg[i] = m
+        return {"image": images, "rects": rects, "labels": labels,
+                "valid": valid, "seg": seg}
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        while True:
+            yield self.batch(self.cfg.batch_size)
 
 
 class RecordTrainPipeline:

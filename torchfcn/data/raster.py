@@ -29,8 +29,18 @@ And two that the offline augmentation of the record writer uses
 * ``gaussian_blur_u8``: ``cv.GaussianBlur(img, (kx, ky), 0)`` of uint8 for
   kernel sizes 3, 5 and 7: OpenCV's fixed tables of small kernels, its
   8-bit fixed-point separable filter, BORDER_REFLECT_101; bit-equal;
-* ``flip_image_with_rects``: ``cv.flip`` and the reference's rect
-  transform, copied from ``tpufcn/data/compositor.py``.
+* ``flip`` and ``flip_image_with_rects``: ``cv.flip`` and the reference's
+  rect transform, copied from ``tpufcn/data/compositor.py``.
+
+And those of the host compositor's photometric chain, rotation and
+resizes (``torchfcn.data.compositor``), equal to cv2 5.0 on every value
+that ``tests/test_torch_cv_filters.py`` tests, each float32 sum in
+OpenCV's order with its fused multiply-adds (``fma_f32``):
+``gaussian_blur_f32`` (``cv.GaussianBlur(img, (0, 0), sigma)``),
+``box_blur_f32`` (``cv.blur``), ``filter2d_3x3_f32`` (``cv.filter2D``),
+``median_blur_u8`` (``cv.medianBlur``), ``resize_nearest_u8``
+(``INTER_NEAREST``), ``get_rotation_matrix_2d`` and ``warp_affine_u8``
+(``cv.warpAffine``, bilinear or nearest, OpenCV 5's float32 mapping).
 
 And two that the tiled segmenter of the stream surface uses
 (``torchfcn.serve.stream``):
@@ -271,11 +281,14 @@ def contour_area(pts) -> float:
                      )) / 2
 
 
-def largest_contour_rect(mask: np.ndarray
+def largest_contour_rect(mask: np.ndarray, area_zero: bool = False
                          ) -> Optional[Tuple[int, int, int, int]]:
     """``cv.boundingRect`` of the largest contour by ``cv.contourArea``
     that ``cv.findContours(mask > 0, RETR_CCOMP, CHAIN_APPROX_SIMPLE)``
-    finds, as (x, y, w, h), or None when there is none or its area is 0.
+    finds, as (x, y, w, h), or None when there is none or its area is 0
+    (with ``area_zero``, None only when there is none: where every contour
+    encloses no area, ``max(contours, key=cv.contourArea)`` takes cv2's
+    first).
 
     The largest contour is always an outer border: a hole's border lies
     inside its component's outer border, and where the two enclose the
@@ -297,7 +310,10 @@ def largest_contour_rect(mask: np.ndarray
     first[flat[order[::-1]]] = order[::-1]
     best, best_area = None, 0.0
     w = fg.shape[1]
-    for lab in np.argsort(first[1:])[::-1] + 1:
+    order = np.argsort(first[1:])[::-1] + 1
+    if area_zero:
+        best = order[0]
+    for lab in order:
         y0, x0 = divmod(int(first[lab]), w)
         area = contour_area(_outer_border(padded, x0 + 1, y0 + 1))
         if area > best_area:
@@ -532,17 +548,23 @@ def gaussian_blur_u8(img: np.ndarray, ksize: Tuple[int, int]) -> np.ndarray:
     return ((out + (1 << 15)) >> 16).astype(np.uint8)
 
 
-def flip_image_with_rects(image: np.ndarray, rects, flip_code: int):
-    """``cv.flip(image, flip_code)`` (0: rows reversed, 1: columns, -1: both)
-    and the reference rect transform (argumentation_engine.py:241-267),
-    including its -1 pixel shifts (``tpufcn/data/compositor.py:69``)."""
+def flip(image: np.ndarray, flip_code: int) -> np.ndarray:
+    """``cv.flip(image, flip_code)``: 0 rows reversed, > 0 columns, < 0
+    both."""
     if flip_code == 0:
         im = image[::-1]
     elif flip_code > 0:
         im = image[:, ::-1]
     else:
         im = image[::-1, ::-1]
-    im = np.ascontiguousarray(im)
+    return np.ascontiguousarray(im)
+
+
+def flip_image_with_rects(image: np.ndarray, rects, flip_code: int):
+    """``flip(image, flip_code)`` and the reference rect transform
+    (argumentation_engine.py:241-267), including its -1 pixel shifts
+    (``tpufcn/data/compositor.py:69``)."""
+    im = flip(image, flip_code)
     h, w = image.shape[:2]
     out = []
     for rect in rects:
@@ -562,3 +584,305 @@ def flip_image_with_rects(image: np.ndarray, rects, flip_code: int):
         ny = max(min(p1[1], p2[1]), 0)
         out.append([nx, ny, abs(p2[0] - p1[0]), abs(p2[1] - p1[1])])
     return im, out
+
+
+# --- the photometric chain's float32 filters ------------------------------
+#
+# OpenCV filters a float32 image row by row, each row as one line of
+# ``W * C`` values: vector code over the leading part of the line, scalar
+# code over its tail.  The two sum their taps in different orders (the
+# vector code with fused multiply-adds), so each function below takes the
+# line's split point from cv2's own loops and computes each part in its
+# order.  ``fma_f32`` is the fused multiply-add, rounded once.
+
+
+def fma_f32(a, b, c) -> np.ndarray:
+    """float32 ``a * b + c`` rounded once, as a fused multiply-add.  The
+    product is exact in float64 and the sum is rounded to float64, then to
+    float32.  That rounds twice only where the float64 sum falls exactly
+    half-way between two float32 values (its 29 low mantissa bits
+    ``1 << 28``); there the rounding error of the float64 sum (two-sum)
+    breaks the tie as the exact sum would."""
+    s = np.multiply(a, b, dtype=np.float64)
+    if np.shape(c) == s.shape:
+        np.add(s, c, out=s)
+    else:
+        s = s + np.asarray(c, np.float64)
+    r = s.astype(np.float32)
+    bits = s.view(np.int64)
+    np.bitwise_and(bits, 0x1FFFFFFF, out=bits)
+    tie = np.flatnonzero(bits == 0x10000000)
+    if tie.size:
+        def pick(v):
+            v = np.asarray(v)
+            if v.ndim == 0:
+                return v
+            return np.broadcast_to(v, r.shape).reshape(-1)[tie]
+
+        p = np.multiply(pick(a), pick(b), dtype=np.float64)
+        c = pick(c).astype(np.float64)
+        s = p + c
+        bb = s - p
+        err = (p - (s - bb)) + (c - bb)
+        flat = r.reshape(-1)
+        fixed = flat[tie]
+        toward = np.where(err > 0, np.float32(np.inf), np.float32(-np.inf))
+        away = (err != 0) & ((s > fixed) == (err > 0))
+        fixed[away] = np.nextafter(fixed[away], toward[away])
+        flat[tie] = fixed
+    return r
+
+
+def _as_lines(img: np.ndarray) -> np.ndarray:
+    """(H, W[, C]) -> (H, W * C): each image row as the line OpenCV walks."""
+    return np.ascontiguousarray(img).reshape(img.shape[0], -1)
+
+
+def _line_taps(img: np.ndarray, lo: int, hi: int) -> list:
+    """The lines of ``img`` (``_as_lines``) shifted along the columns by lo ..
+    hi pixels, the border reflected: views into one padded copy."""
+    w = img.shape[1]
+    c = img.shape[2] if img.ndim == 3 else 1
+    padded = _as_lines(np.take(img, _reflect101(np.arange(lo, w + hi), w),
+                               axis=1))
+    return [padded[:, k * c:(k + w) * c] for k in range(hi - lo + 1)]
+
+
+def _row_taps(lines: np.ndarray, lo: int, hi: int) -> list:
+    """``lines`` shifted along the rows by lo .. hi, the border reflected:
+    views into one padded copy."""
+    h = lines.shape[0]
+    padded = np.take(lines, _reflect101(np.arange(lo, h + hi), h), axis=0)
+    return [padded[k:k + h] for k in range(hi - lo + 1)]
+
+
+def box_blur_f32(img: np.ndarray, k: int) -> np.ndarray:
+    """``cv.blur(img, (k, k))`` of a float32 (H, W[, C]) image, k of 2 to 7,
+    the anchor at k // 2: the window summed in float64 (rows, then
+    columns), times ``1 / (k * k)`` in float64, rounded to float32."""
+    img = np.asarray(img, np.float32)
+    a = k // 2
+    rows = 0
+    for t in _line_taps(img, -a, k - 1 - a):
+        rows = rows + t.astype(np.float64)
+    out = 0
+    for t in _row_taps(rows, -a, k - 1 - a):
+        out = out + t
+    return (out * (1.0 / (k * k))).astype(np.float32).reshape(img.shape)
+
+
+def filter2d_3x3_f32(img: np.ndarray, kern: np.ndarray) -> np.ndarray:
+    """``cv.filter2D(img, -1, kern)`` of a float32 (H, W[, C]) image with a
+    3x3 float32 kernel free of zeros: the 9 taps in row-major order, from
+    0.  The vector code (each line's first ``8 * (L // 8)`` values) fuses
+    each multiply-add; the scalar tail rounds each product first."""
+    img = np.asarray(img, np.float32)
+    kern = np.asarray(kern, np.float32)
+    taps = [t for line in _line_taps(img, -1, 1)
+            for t in _row_taps(line, -1, 1)]
+    taps = taps[0::3] + taps[1::3] + taps[2::3]    # row-major order
+    head = 8 * (taps[0].shape[1] // 8)
+    out = np.zeros_like(taps[0])
+    tail = out[:, head:].copy()
+    for t, w in zip(taps, kern.ravel()):
+        out = fma_f32(t, w, out)
+        tail = tail + t[:, head:] * w
+    out[:, head:] = tail
+    return out.reshape(img.shape)
+
+
+def gaussian_kernel_f32(ksize: int, sigma: float) -> np.ndarray:
+    """``cv.getGaussianKernel(ksize, sigma, cv.CV_32F)`` for sigma > 0 and
+    an odd ksize: ``exp(-x^2 / (2 sigma^2))`` in float64 over x = ksize // 2
+    .. 1, its sum doubled plus the centre's 1, each weight times the
+    sum's reciprocal, rounded to float32."""
+    n2 = (ksize - 1) // 2
+    x = np.arange(1 - ksize, 0, 2, dtype=np.float64)
+    values = np.exp(x * x * (-0.125 / (sigma * sigma)))
+    total = 0.0
+    for v in values:
+        total += v
+    mul = 1.0 / (total * 2 + 1.0)
+    side = values * mul
+    return np.concatenate([side, [mul], side[::-1]]).astype(np.float32) \
+        if n2 else np.array([1.0], np.float32)
+
+
+def gaussian_ksize(sigma: float) -> int:
+    """OpenCV's kernel size for a float image and ``ksize=(0, 0)``:
+    ``round(8 sigma + 1) | 1``."""
+    return int(np.rint(sigma * 8 + 1)) | 1
+
+
+def gaussian_blur_f32(img: np.ndarray, sigma: float) -> np.ndarray:
+    """``cv.GaussianBlur(img, (0, 0), sigma)`` of a float32 (H, W[, C]) image,
+    separable, rows first (``gaussian_kernel_f32``, ``gaussian_ksize``).
+
+    Along the rows, kernels of 3 and 5 taps (OpenCV's small symmetric
+    filter) take the centre times its weight fused onto the sum of the
+    nearest pair times its weight, then (5 taps) the outer pair fused on;
+    a line of odd length ends in one value: the centre times its weight,
+    then each pair times its weight added on (fused for 3 taps, each
+    product rounded for 5).  Longer kernels fuse tap after tap from
+    0, tap order, over each line's first ``4 * (L // 4)`` values; over the
+    rest, the scalar loop (unrolled by 4 over taps 1 .. n - 1) rounds each
+    product but fuses the taps past the last whole group of 4.  Along the
+    columns: the centre
+    times its weight, then each pair (inner first) fused on, except past
+    ``8 * (L // 8)`` of kernels longer than 3, where each product is
+    rounded.
+
+    Equal to cv2 5.0 on images of at least 2 x 2 pixels (cv2 takes other
+    paths on a single row or column)."""
+    img = np.asarray(img, np.float32)
+    n = gaussian_ksize(sigma)
+    if n == 1:
+        return img.copy()
+    w = gaussian_kernel_f32(n, sigma)
+    r = n // 2
+    x = _line_taps(img, -r, r)
+    L = x[0].shape[1]
+
+    def symmetric(taps, lo, fused):
+        """The centre, then each pair fused on (or each product rounded)
+        over the line's values from ``lo`` on."""
+        acc = taps[r][:, lo:] * w[r]
+        for i in range(1, r + 1):
+            pair = taps[r - i][:, lo:] + taps[r + i][:, lo:]
+            acc = fma_f32(pair, w[r + i], acc) if fused else \
+                acc + pair * w[r + i]
+        return acc
+
+    if n <= 5:
+        rows = fma_f32(x[r], w[r], (x[r - 1] + x[r + 1]) * w[r + 1])
+        if n == 5:
+            rows = fma_f32(x[0] + x[4], w[4], rows)
+        if L % 2:
+            rows[:, L - 1:] = symmetric(x, L - 1, n == 3)
+    else:
+        head = 4 * (L // 4)
+        rows = x[0] * w[0]
+        tail = rows[:, head:].copy()
+        for k in range(1, n):
+            rows = fma_f32(x[k], w[k], rows)
+            if k > 4 * ((n - 1) // 4):
+                tail = fma_f32(x[k][:, head:], w[k], tail)
+            else:
+                tail = tail + x[k][:, head:] * w[k]
+        rows[:, head:] = tail
+    y = _row_taps(rows, -r, r)
+    out = symmetric(y, 0, True)
+    if n > 3:
+        head = 8 * (L // 8)
+        out[:, head:] = symmetric(y, head, False)
+    return out.reshape(img.shape)
+
+
+def median_blur_u8(img: np.ndarray, k: int) -> np.ndarray:
+    """``cv.medianBlur(img, k)`` of a uint8 (H, W[, C]) image, k of 3, 5 or
+    7: each channel's median over the k x k window, the border replicated."""
+    img = np.asarray(img, np.uint8)
+    a = k // 2
+    pad = [(a, a), (a, a)] + [(0, 0)] * (img.ndim - 2)
+    win = np.lib.stride_tricks.sliding_window_view(
+        np.pad(img, pad, mode="edge"), (k, k), axis=(0, 1))
+    win = win.reshape(img.shape + (k * k,))
+    return np.partition(win, k * k // 2, axis=-1)[..., k * k // 2]
+
+
+def resize_nearest_u8(img: np.ndarray, size_wh: Tuple[int, int]
+                      ) -> np.ndarray:
+    """``cv.resize(img, size_wh, interpolation=cv.INTER_NEAREST)``: output
+    pixel d takes source pixel ``floor(d / (out / in))`` (the reciprocal in
+    float64, as OpenCV takes it), clamped into the image."""
+    img = np.asarray(img)
+
+    def taps(n_in, n_out):
+        inv = 1.0 / (n_out / n_in)
+        return np.minimum(np.floor(np.arange(n_out) * inv).astype(np.int64),
+                          n_in - 1)
+
+    return img[taps(img.shape[0], size_wh[1])][:, taps(img.shape[1],
+                                                        size_wh[0])]
+
+
+# --- rotation -------------------------------------------------------------
+
+def get_rotation_matrix_2d(center: Tuple[float, float], angle: float,
+                           scale: float) -> np.ndarray:
+    """``cv.getRotationMatrix2D(center, angle, scale)``: the (2, 3) float64
+    affine matrix of a rotation by ``angle`` degrees (counter-clockwise on
+    the screen) about ``center`` (taken as float32, as OpenCV's Point2f)."""
+    cx, cy = (float(np.float32(c)) for c in center)
+    rad = angle * (math.pi / 180)
+    alpha = math.cos(rad) * scale
+    beta = math.sin(rad) * scale
+    return np.array([[alpha, beta, (1 - alpha) * cx - beta * cy],
+                     [-beta, alpha, beta * cx + (1 - alpha) * cy]])
+
+
+def _invert_affine(m: np.ndarray) -> np.ndarray:
+    """The inverse of a (2, 3) affine map as ``cv.warpAffine`` computes it
+    (float64, the determinant's reciprocal first), flattened to 6."""
+    m = np.asarray(m, np.float64).ravel().copy()
+    d = m[0] * m[4] - m[1] * m[3]
+    d = 1.0 / d if d != 0 else 0.0
+    a11, a22 = m[4] * d, m[0] * d
+    m[0], m[1], m[3], m[4] = a11, m[1] * -d, m[3] * -d, a22
+    b1 = -m[0] * m[2] - m[1] * m[5]
+    b2 = -m[3] * m[2] - m[4] * m[5]
+    m[2], m[5] = b1, b2
+    return m
+
+
+def warp_affine_u8(img: np.ndarray, m: np.ndarray, size_wh: Tuple[int, int],
+                   nearest: bool = False) -> np.ndarray:
+    """``cv.warpAffine(img, m, size_wh)`` of a uint8 (H, W[, C]) image,
+    ``INTER_LINEAR`` (or ``INTER_NEAREST``), pixels outside the source 0.
+
+    OpenCV 5 maps each output pixel back in float32: the inverse matrix
+    rounded to float32, the source position ``x * M0 + (y * M1 + M2)`` with
+    the first multiply-add fused over each row's first ``16 * (W // 16)``
+    pixels (its vector loop) and ``(x * M0 + y * M1) + M2`` with the first
+    one fused past them (the scalar loop); then the four neighbours
+    interpolated in float32, ``p0 + a * (p1 - p0)`` fused, along x and then
+    along y, and rounded half to even (nearest: the position rounded half
+    to even)."""
+    img = np.asarray(img, np.uint8)
+    f32 = np.float32
+    M = _invert_affine(m).astype(f32)
+    W, H = size_wh
+    h, w = img.shape[:2]
+    head = 16 * (W // 16)
+    x = np.broadcast_to(np.arange(W, dtype=f32)[None], (H, W))
+    y = np.arange(H, dtype=f32)[:, None]
+
+    def source(m0, m1, m2):
+        yw = np.broadcast_to(y * m1, (H, W))
+        vec = fma_f32(x[:, :head], m0, yw[:, :head] + m2)
+        tail = fma_f32(x[:, head:], m0, yw[:, head:]) + m2
+        return np.concatenate([vec, tail], axis=1)
+
+    sx, sy = source(M[0], M[1], M[2]), source(M[3], M[4], M[5])
+
+    def pixels(iy, ix):
+        inside = (ix >= 0) & (ix < w) & (iy >= 0) & (iy < h)
+        v = img[np.clip(iy, 0, h - 1), np.clip(ix, 0, w - 1)]
+        if img.ndim == 3:
+            inside = inside[..., None]
+        return np.where(inside, v, 0).astype(f32)
+
+    if nearest:
+        return pixels(np.rint(sy).astype(np.int64),
+                      np.rint(sx).astype(np.int64)).astype(np.uint8)
+    ix, iy = np.floor(sx), np.floor(sy)
+    ax, ay = sx - ix, sy - iy
+    ix, iy = ix.astype(np.int64), iy.astype(np.int64)
+    if img.ndim == 3:
+        ax, ay = ax[..., None], ay[..., None]
+    p00, p01 = pixels(iy, ix), pixels(iy, ix + 1)
+    p10, p11 = pixels(iy + 1, ix), pixels(iy + 1, ix + 1)
+    top = fma_f32(ax, p01 - p00, p00)
+    bottom = fma_f32(ax, p11 - p10, p10)
+    out = fma_f32(ay, bottom - top, top)
+    return np.clip(np.rint(out), 0, 255).astype(np.uint8)

@@ -6,19 +6,21 @@ gate, the reference's own data flow on the committed VOC fixture (VOC
 converter -> record shards -> training -> held-out mAP).
 
 Every e5m2 and structural decision is gated on these trained readings, not
-on output parity.  The JAX package composes its training scenes on the
-host by default; the port composes them with its device compositor (the
-only data mode here: ``"device"``), and its held-out sets too
-(``build_eval_set``).  So the port's readings are its own: the JAX
-package measured device-composed training scenes 0.04-0.12 mAP below
-host-composed ones on its host-composed held-out set.
-
-Not ported yet: the host data modes.
+on output parity.  As in the JAX package, a gate trains by default on a
+fixed set of scenes composed by the host compositor and cached on disk
+(``data_mode="host_cached"``; ``"host"`` composes them in every run) and
+scores on the host-composed held-out set (``build_eval_set``), so that one
+seed trains and scores on the JAX package's scenes.  ``data_mode="device"``
+composes the training scenes with the device compositor and scores on a
+device-composed held-out set (``build_device_eval_set``): the JAX package
+measured device-composed training scenes 0.04-0.12 mAP below host-composed
+ones on its host-composed held-out set.
 """
 
 from __future__ import annotations
 
 import os
+import sys
 import tempfile
 import time
 from typing import Dict, Optional, Sequence
@@ -28,8 +30,8 @@ import torch
 
 from torchfcn.core.config import DataConfig, GridConfig, TrainConfig
 from torchfcn.data.hardbench import (
-    build_eval_set, eval_cache_path, hard_device_pipeline,
-    sources_cache_path)
+    build_device_eval_set, build_eval_set, eval_cache_path,
+    hard_device_pipeline, hard_pipeline)
 
 DEFAULT_ROOT = os.path.join(tempfile.gettempdir(), "torchfcn_hardgate")
 VOC_WORK_ROOT = os.path.join(tempfile.gettempdir(), "torchfcn_vocgate")
@@ -62,40 +64,112 @@ def _hard_trainer(model_name: str, grid: GridConfig, root: str, *,
                    with_seg=with_seg, log_sink=lambda s: None, device=device)
 
 
+# Scene-cache format version: raise it whenever hard_pipeline or the host
+# compositor changes the bytes it composes for a given (geometry, classes,
+# batch, n, seed) key, which the key alone cannot see.  Version 1 keeps the
+# JAX package's unversioned name; later versions append ``_v{N}``.
+SCENE_CACHE_VERSION = 1
+DATA_MODES = ("host_cached", "host", "device")
+
+
+def train_cache_path(root: str, grid: GridConfig, *, classes: int,
+                     batch: int, n_cached: int, seed: int) -> str:
+    """Where a gate's host-composed training scenes are cached (the JAX
+    package's name)."""
+    tag = (f"hard_train_{grid.im_height}x{grid.im_width}_s{grid.stride}"
+           f"_c{classes}_b{batch}_n{n_cached}_seed{seed}")
+    if SCENE_CACHE_VERSION > 1:
+        tag += f"_v{SCENE_CACHE_VERSION}"
+    return os.path.join(root, tag + ".npz")
+
+
+def _cached_host_batches(root: str, grid: GridConfig, *, classes: int,
+                         batch: int, n_cached: int, seed: int, log=None):
+    """The gate's fixed training scenes: ``n_cached`` batches of
+    ``hard_pipeline(seed=seed)``, composed once on the host and cached at
+    ``train_cache_path`` (seg maps stored as uint8).  Returns the batches
+    as dicts of numpy.  ``log``: progress lines (default stderr)."""
+    if log is None:
+        log = lambda m: print(m, file=sys.stderr)   # noqa: E731
+    path = train_cache_path(root, grid, classes=classes, batch=batch,
+                            n_cached=n_cached, seed=seed)
+    if not os.path.isfile(path):
+        t0 = time.time()
+        pipe = hard_pipeline(root, grid, batch_size=batch, seed=seed,
+                             classes=classes)
+        batches = [pipe.batch(batch) for _ in range(n_cached)]
+        arrs = {}
+        for k in batches[0]:
+            stacked = np.stack([b[k] for b in batches])
+            if k == "seg":       # labels <= classes + 1: store compactly
+                stacked = stacked.astype(np.uint8)
+            arrs[k] = stacked
+        tmp = f"{path}.{os.getpid()}.tmp.npz"
+        np.savez(tmp, **arrs)
+        os.replace(tmp, path)    # no reader sees a half-written file
+        log(f"gate host-batch cache: composed {os.path.basename(path)} "
+            f"in {time.time() - t0:.0f}s")
+    with np.load(path) as z:
+        arrs = {k: z[k] for k in z.files}
+    n = arrs["image"].shape[0]
+    return [{k: (v[i].astype(np.int32) if k == "seg" else v[i])
+             for k, v in arrs.items()} for i in range(n)]
+
+
 def _train_hard(model_name: str, grid: GridConfig, root: str, *,
                 classes: int, steps: int, batch: int, n_cached: int,
                 seed: int, with_seg: bool, model_kwargs: Optional[dict],
                 lr: float = 3e-4, weights: Optional[str] = None,
-                data_mode: str = "device", warmup: int = 0, device="cuda"):
+                data_mode: str = "host_cached", warmup: int = 0, log=None,
+                device="cuda"):
     """Train ``model_name`` on the hard benchmark (``_hard_trainer``) from a
-    ``DeviceBatchCache`` of ``n_cached`` batches composed on the device by
-    ``hard_device_pipeline(seed=1000 + seed)``; returns the final
-    ``TrainState``.  ``seed`` varies both the initial parameters and the
-    scenes.  ``weights``: a ``.caffemodel`` (e.g. the VGG16 pretrain)
-    loaded leniently by name over the seeded init.  ``data_mode`` must be
-    "device": the JAX package's host modes need the host compositor, which
-    is not ported."""
+    ``DeviceBatchCache`` of ``n_cached`` batches of scenes seeded with
+    ``1000 + seed``; returns the final ``TrainState``.  ``seed`` varies both
+    the initial parameters and the scenes.  ``weights``: a ``.caffemodel``
+    (e.g. the VGG16 pretrain) loaded leniently by name over the seeded
+    init.  ``data_mode``, where the scenes come from (the JAX package's
+    three):
+
+    * "host_cached" (the default): the host compositor, cached on disk
+      (``_cached_host_batches``), so only the first run composes them;
+    * "host": the host compositor in every run;
+    * "device": the device compositor on ``device``."""
     from torchfcn.convert import resolve_weights
     from torchfcn.data.pipeline import DeviceBatchCache
 
-    if data_mode != "device":
-        raise ValueError(
-            f"data_mode={data_mode!r}: the port composes gate scenes with "
-            f"its device compositor only (\"device\"); the host modes need "
-            f"the host compositor, which is not ported")
+    if data_mode not in DATA_MODES:
+        raise ValueError(f"data_mode={data_mode!r}: one of {DATA_MODES}")
     trainer = _hard_trainer(model_name, grid, root, steps=steps, batch=batch,
                             seed=seed, with_seg=with_seg,
                             model_kwargs=model_kwargs, lr=lr, warmup=warmup,
                             device=device)
-    src = iter(hard_device_pipeline(root, grid, batch_size=batch,
-                                    seed=1000 + seed, classes=classes,
-                                    device=device))
+    if data_mode == "host_cached":
+        src = iter(_cached_host_batches(root, grid, classes=classes,
+                                        batch=batch, n_cached=n_cached,
+                                        seed=1000 + seed, log=log))
+    elif data_mode == "host":
+        src = iter(hard_pipeline(root, grid, batch_size=batch,
+                                 seed=1000 + seed, classes=classes))
+    else:
+        src = iter(hard_device_pipeline(root, grid, batch_size=batch,
+                                        seed=1000 + seed, classes=classes,
+                                        device=device))
     cache = DeviceBatchCache(trainer.put, src, n_batches=n_cached)
     state = trainer.init_state()
     if weights:
         resolve_weights(weights, state.model)
     return trainer.fit(iter(cache), max_iter=steps, state=state,
                        resume=False)
+
+
+def held_out_set(root: str, grid: GridConfig, classes: int, n_images: int,
+                 data_mode: str = "host_cached", device="cuda"):
+    """The gate's held-out set: the host-composed one (``build_eval_set``)
+    for the host modes, the device-composed one for "device"."""
+    if data_mode == "device":
+        return build_device_eval_set(root, grid, classes=classes,
+                                     n_images=n_images, device=device)
+    return build_eval_set(root, grid, classes=classes, n_images=n_images)
 
 
 def _score_detector(model_name: str, params, grid: GridConfig, images, gts,
@@ -126,13 +200,15 @@ def detection_gate(model_name: str, *,
                    root: str = DEFAULT_ROOT, with_seg: bool = False,
                    lr: float = 3e-4, warmup: int = 0,
                    weights: Optional[str] = None, log=None,
+                   data_mode: str = "host_cached",
                    device="cuda") -> Dict[str, object]:
     """Train and score one detection family on the hard benchmark.
 
     Trains the exact model per seed and scores the same parameters exact
     and, with ``serving_kwargs``, through the e5m2 serving preset: e5m2
     storage is serving-only, so serving accuracy is measured on parameters
-    trained exact, as deployed.  Returns {"exact": {"mAP", "min", "max",
+    trained exact, as deployed.  ``data_mode``: ``_train_hard``'s, and
+    ``held_out_set``'s.  Returns {"exact": {"mAP", "min", "max",
     "per_seed"}, optional "fp8": {...}, "n_gt", "n_det", "eval_images",
     "seeds", "train_s", "eval_s"}."""
     from torchfcn.models import get_spec
@@ -142,8 +218,8 @@ def detection_gate(model_name: str, *,
                                else 0)
     grid = GridConfig(im, im, stride=stride, num_classes=model_classes)
     model_kwargs = {"num_classes": model_classes}
-    images, gts, _ = build_eval_set(root, grid, classes=classes,
-                                    n_images=eval_images, device=device)
+    images, gts, _ = held_out_set(root, grid, classes, eval_images,
+                                  data_mode, device)
     n_gt = int(sum(len(g[1]) for g in gts))
     per_seed: Dict[str, list] = {"exact": []}
     if serving_kwargs:
@@ -156,7 +232,8 @@ def detection_gate(model_name: str, *,
                             steps=steps, batch=batch, n_cached=n_cached,
                             seed=seed, with_seg=with_seg,
                             model_kwargs=model_kwargs, lr=lr, warmup=warmup,
-                            weights=weights, device=device)
+                            weights=weights, data_mode=data_mode, log=log,
+                            device=device)
         train_s += time.time() - t0
         if log:
             log(f"{model_name} seed {seed}: {steps} steps in "
@@ -208,14 +285,16 @@ def segmentation_gate(model_name: str = "fcn32s_seg", *,
                       n_cached: int = 30, seeds: Sequence[int] = (0,),
                       eval_images: int = 64, root: str = DEFAULT_ROOT,
                       warmup: int = 0, weights: Optional[str] = None,
-                      log=None, device="cuda") -> Dict[str, object]:
+                      log=None, data_mode: str = "host_cached",
+                      device="cuda") -> Dict[str, object]:
     """FCN-32s family gate: held-out mean-IoU on the hard benchmark, the
     exact net and its e5m2 preset on the same parameters (masks carry
-    label + 1; class 0 is background)."""
+    label + 1; class 0 is background); ``data_mode`` as in
+    ``detection_gate``."""
     C = classes + 1
     grid = GridConfig(im, im, stride=stride, num_classes=C)
-    images, _, segs = build_eval_set(root, grid, classes=classes,
-                                     n_images=eval_images, device=device)
+    images, _, segs = held_out_set(root, grid, classes, eval_images,
+                                   data_mode, device)
     per_seed: Dict[str, list] = {"exact": [], "fp8": []}
     train_s = eval_s = 0.0
     for seed in seeds:
@@ -224,7 +303,8 @@ def segmentation_gate(model_name: str = "fcn32s_seg", *,
                             steps=steps, batch=batch, n_cached=n_cached,
                             seed=seed, with_seg=True,
                             model_kwargs={"num_classes": C}, warmup=warmup,
-                            weights=weights, device=device)
+                            weights=weights, data_mode=data_mode, log=log,
+                            device=device)
         train_s += time.time() - t0
         if log:
             log(f"{model_name} seed {seed}: {steps} steps in "
@@ -346,10 +426,18 @@ def bench_gate_configs(tier: str = "bench") -> Dict[str, dict]:
     steps).  The fp8 serving kwargs are each family's ``_serving``
     preset's (``torchfcn.models.registry``).
 
-    ``est_s`` is a unit's wall (train and both scorings, warm caches) and
-    ``est_s0`` its first-touch wall (sources, held-out set), in seconds on
-    one NVIDIA H100 80GB HBM3 at 700 W: the capture tier's as measured by
-    ``python -m torchfcn.cli gates``, the full tier's derived from them."""
+    ``est_s`` is a unit's wall (train and both scorings, warm caches), in
+    seconds on one NVIDIA H100 80GB HBM3 at 700 W: the capture tier's as
+    measured by ``python -m torchfcn.cli gates``, the full tier's derived
+    from them.  ``est_s0``, a unit's first-touch wall, is derived for the
+    host-cached default, not measured: the unit's host scenes (``n_cached
+    * batch`` cached training scenes and ``eval_images`` held-out ones)
+    times the host's ms per scene at the gate's geometry that phase 15 of
+    ``chip_smoke.py`` measured on that card's host (70.0 at 448x448, 46.6
+    at 288x288, 44.7 at 224x224), plus ``est_s``, rounded up (the
+    pretrain's and the VOC gate's compose no scene and keep their measured
+    walls).  Phase 15 measured googlenet_3cls's first touch at 144.9 s
+    (62.7 + 6.5 s composing, a 75.7 s unit) against the 147 derived."""
     e5m2 = torch.float8_e5m2
     gnet_fp8 = {"store_dtype": e5m2, "store_blocks": True,
                 "store_stem2": True}
@@ -360,44 +448,43 @@ def bench_gate_configs(tier: str = "bench") -> Dict[str, dict]:
         return {
             "fcn32s": dict(
                 kind="segmentation", steps=2500, n_cached=60,
-                seeds=(0, 1), est_s=60, est_s0=66),
+                seeds=(0, 1), est_s=60, est_s0=106),
             "googlenet_3cls": dict(
                 kind="detection", model="googlenet_detectnet_3cls",
                 classes=3, im=448, stride=16, steps=6000, n_cached=60,
                 seeds=(0, 1), lr=2e-4, eval_images=192, est_s=220,
-                est_s0=220, serving_kwargs=dict(gnet_fp8)),
+                est_s0=301, serving_kwargs=dict(gnet_fp8)),
             "voc_fixture": dict(kind="voc", est_s=VOC_EST_S,
                                 est_s0=VOC_EST_S),
             "googlenet": dict(
                 kind="detection", model="googlenet_detectnet",
                 classes=4, im=448, stride=16, steps=6000, n_cached=60,
-                seeds=(0, 1), est_s=210, est_s0=210,
+                seeds=(0, 1), est_s=210, est_s0=287,
                 serving_kwargs=dict(gnet_fp8)),
             "fcn8s": dict(
                 kind="detection", model="fcn8s_bbox",
                 classes=4, im=288, stride=8, steps=6000, n_cached=90,
-                seeds=(0, 1, 2), with_seg=True, est_s=150, est_s0=152,
+                seeds=(0, 1, 2), with_seg=True, est_s=150, est_s0=221,
                 serving_kwargs={"store_dtype": e5m2, "store_stages": 2}),
             "vgg_pyramid": dict(
                 kind="detection", model="vgg_pyramid_detectnet",
                 classes=4, im=448, stride=16, steps=6000, n_cached=60,
-                seeds=(0, 1), lr=1e-4, est_s=225, est_s0=225,
+                seeds=(0, 1), lr=1e-4, est_s=225, est_s0=302,
                 serving_kwargs={"store_dtype": e5m2}),
         }
-    # capture tier: the walls of each unit of a run of every family through
-    # `python -m torchfcn.cli gates` on an NVIDIA H100 80GB HBM3 at 700 W
-    # (PERF.md, section 6), rounded up; est_s0 the first seed's (sources,
-    # held-out set), est_s the later seeds'
+    # capture tier: est_s the walls of each unit of a run of every family
+    # through `python -m torchfcn.cli gates` on an NVIDIA H100 80GB HBM3 at
+    # 700 W (PERF.md, section 6), rounded up; est_s0 derived as above
     return {
         "fcn32s": dict(
             kind="segmentation", steps=1250, batch=32, n_cached=30,
-            seeds=(0, 1), est_s=30, est_s0=36),
+            seeds=(0, 1), est_s=30, est_s0=76),
         "voc_fixture": dict(kind="voc", est_s=VOC_EST_S, est_s0=VOC_EST_S),
         "fcn8s": dict(
             kind="detection", model="fcn8s_bbox",
             classes=4, im=288, stride=8, steps=2500, n_cached=90,
             seeds=(0, 1, 2), with_seg=True, eval_images=64,
-            est_s=61, est_s0=63,
+            est_s=61, est_s0=132,
             serving_kwargs={"store_dtype": e5m2, "store_stages": 2}),
         # the shared VGG16 backbone pretrain; only vgg_pyramid fine-tunes
         # from it (the JAX package's capture-tier choice).  Warm: the
@@ -409,17 +496,17 @@ def bench_gate_configs(tier: str = "bench") -> Dict[str, dict]:
             kind="detection", model="vgg_pyramid_detectnet",
             classes=4, im=448, stride=16, steps=2000, n_cached=60,
             seeds=(0, 1), lr=1e-4, eval_images=64, pretrain=True,
-            est_s=75, est_s0=75,
+            est_s=75, est_s0=147,
             serving_kwargs={"store_dtype": e5m2}),
         "googlenet_3cls": dict(
             kind="detection", model="googlenet_detectnet_3cls",
             classes=3, im=448, stride=16, steps=2000, n_cached=60,
             seeds=(0, 1), lr=1e-4, eval_images=96, est_s=73,
-            est_s0=73, serving_kwargs=dict(gnet_fp8)),
+            est_s0=147, serving_kwargs=dict(gnet_fp8)),
         "googlenet": dict(
             kind="detection", model="googlenet_detectnet",
             classes=4, im=448, stride=16, steps=2000, n_cached=60,
-            seeds=(0, 1), eval_images=128, est_s=69, est_s0=69,
+            seeds=(0, 1), eval_images=128, est_s=69, est_s0=146,
             serving_kwargs=dict(gnet_fp8)),
     }
 
@@ -476,21 +563,22 @@ def _gate_geometry(kind: str, cfg: dict):
 
 
 def _unit_cold(kind: str, cfg: dict, root: str, seed: int) -> bool:
-    """Whether a gate unit pays first-touch costs: its rendered sources or
-    its held-out set are not on disk (pretrain: its ``.caffemodel``), so
-    the scheduler budgets ``est_s0`` instead of ``est_s``.  Training
-    scenes are composed on the device in every run, whatever the seed; the
-    VOC gate converts its small inputs in every run (its first-touch costs
-    live in ``est_s``)."""
+    """Whether a gate unit pays first-touch costs: its cached training
+    scenes (seed ``1000 + seed``) or its held-out set are not on disk
+    (pretrain: its ``.caffemodel``), so the scheduler budgets ``est_s0``
+    instead of ``est_s``.  The VOC gate converts its small inputs in every
+    run (its first-touch costs live in ``est_s``)."""
     if kind == "pretrain":
         from torchfcn.train.pretrain import pretrain_cache_path
         return not os.path.isfile(pretrain_cache_path(root, **cfg))
     if kind not in ("segmentation", "detection"):
         return False
     g, grid = _gate_geometry(kind, cfg)
-    return not (os.path.isfile(sources_cache_path(root, g["classes"], 7))
-                and os.path.isfile(eval_cache_path(root, grid, g["classes"],
-                                                   g["eval_images"])))
+    train = train_cache_path(root, grid, classes=g["classes"],
+                             batch=g["batch"], n_cached=g["n_cached"],
+                             seed=1000 + seed)
+    return not (os.path.isfile(train) and os.path.isfile(
+        eval_cache_path(root, grid, g["classes"], g["eval_images"])))
 
 
 def _merge_family(old: Optional[dict], new: dict) -> dict:
@@ -524,11 +612,11 @@ def _merge_family(old: Optional[dict], new: dict) -> dict:
 def warm_gate_caches(root: str = DEFAULT_ROOT,
                      only: Optional[Sequence[str]] = None, log=print,
                      tier: str = "bench", device="cuda") -> Dict[str, str]:
-    """Render and compose every tracked gate's on-disk inputs without
-    training: the sources, each family's held-out set and the pretrain
-    (which does train, on ``device``); the VOC gate has none (it converts
-    its own small inputs in every run).  Returns {cache path: "composed" |
-    "warm"}."""
+    """Compose every tracked gate's on-disk inputs without training: each
+    family's held-out set and each seed's cached training scenes, and the
+    pretrain (which does train, on ``device``); the VOC gate has none (it
+    converts its own small inputs in every run).  Returns {cache path:
+    "composed" | "warm"}."""
     out: Dict[str, str] = {}
 
     def _touch(path, compose):
@@ -557,8 +645,15 @@ def warm_gate_caches(root: str = DEFAULT_ROOT,
         g, grid = _gate_geometry(kind, cfg)
         _touch(eval_cache_path(root, grid, g["classes"], g["eval_images"]),
                lambda: build_eval_set(root, grid, classes=g["classes"],
-                                      n_images=g["eval_images"],
-                                      device=device))
+                                      n_images=g["eval_images"]))
+        for seed in g.get("seeds", (0,)):
+            path = train_cache_path(root, grid, classes=g["classes"],
+                                    batch=g["batch"],
+                                    n_cached=g["n_cached"],
+                                    seed=1000 + seed)
+            _touch(path, lambda s=seed: _cached_host_batches(
+                root, grid, classes=g["classes"], batch=g["batch"],
+                n_cached=g["n_cached"], seed=1000 + s, log=log))
     return out
 
 

@@ -28,7 +28,7 @@ from torchfcn.core.config import DetectorConfig
 from torchfcn.data.imageio import imread_or_none
 from torchfcn.data.manifest import bgr2gray_u8, need_decoder, \
     read_detection_manifest, read_mask_manifest, read_voc_manifest
-from torchfcn.data.raster import resize_linear_u8
+from torchfcn.data.raster import resize_linear_u8, resize_nearest_u8
 from torchfcn.train.evaluate import evaluate_detections, \
     evaluate_segmentation
 
@@ -191,17 +191,6 @@ def val_set_from_voc(path: str, hw: Tuple[int, int],
                                imread_or_none, resize_linear_u8)
 
 
-def _resize_nearest(mask: np.ndarray, size_wh: Tuple[int, int]) -> np.ndarray:
-    """cv.resize(mask, size_wh, interpolation=INTER_NEAREST): output pixel
-    x samples input pixel floor(x * in / out)."""
-    W, H = size_wh
-    ys = np.minimum((np.arange(H) * (mask.shape[0] / H)).astype(np.int64),
-                    mask.shape[0] - 1)
-    xs = np.minimum((np.arange(W) * (mask.shape[1] / W)).astype(np.int64),
-                    mask.shape[1] - 1)
-    return mask[ys[:, None], xs[None, :]]
-
-
 def seg_val_set_from_manifest(path: str, hw: Tuple[int, int],
                               limit: Optional[int] = None,
                               label_map: Optional[dict] = None,
@@ -225,7 +214,7 @@ def seg_val_set_from_manifest(path: str, hw: Tuple[int, int],
         if img.shape[:2] != (H, W):
             img = need_decoder(resize, "seg_val_set_from_manifest")(img, (W, H))
         images.append(img)
-        m = _resize_nearest(msk, (W, H))
+        m = resize_nearest_u8(msk, (W, H))
         masks.append(np.where(m > 0, s.label, 0).astype(np.int32))
     if not images:
         raise ValueError(f"no readable image/mask pairs in {path}")
