@@ -253,24 +253,55 @@ plain versions are full float32.
    tests compose; host ms per batch and per scene (median of 4 batches)
    and per scene at 224x224 and 288x288; ``cli train --manifest`` (no
    --device-data) on the card from the hard sources written as PNGs, 20
-   steps of B = 8 under torch.profiler (finite losses, steps/s, the
-   device's idle share); the googlenet_3cls gate unit in the JAX package's
+   steps of B = 8 under torch.profiler (finite losses, steps/s and the
+   device's idle share over the command and over the Trainer's loop); the
+   googlenet_3cls gate unit in the JAX package's
    own mode (its capture configuration, host-cached training scenes, the
    host held-out set), exact and e5m2, past HOST_GATE_MAP_LIMIT with the
    untrained net below it, each kernel against its plain version on its
    scoring's recorded inputs, the JAX package's recorded reading printed
-   beside it as a reference.
+   beside it as a reference;
+16. inputs: the host worker pool, e5m2 storage without store_stem2 and
+   camera recordings.  ``ParallelCompositePipeline`` (spawned workers, in
+   fresh ``python -c`` processes, whose children import no main script, as
+   under ``python -m torchfcn.cli``) over the hard sources written as PNGs:
+   2 workers at 64x64, B = 2, each batch received by digest the next batch
+   of exactly one worker's serial ``CompositeTrainPipeline(seed + 1000 *
+   w)``, both workers sending; scenes/s of a serial pipeline and of pools
+   of 1, 2, 4 and 8 workers at 448x448, B = 8 (the first batch's wait
+   apart); ``cli train --manifest --workers 8`` at phase 15's settings
+   under torch.profiler (steps/s and the device's idle share over the
+   command and over the Trainer's loop, beside phase 15's in-process
+   reading); a worker's missing file relayed as RuntimeError; no process
+   left after any pool's close().
+   ``Detector("googlenet_detectnet", model_kwargs={"store_dtype": e5m2})``
+   (store_stem2 off) on 8 seeded 448x448 frames: lrn, lrn_maxpool and
+   groupRectangles once each, the stem tail never, LRN1's input e5m2
+   values, both LRN kernels against their plain versions on their recorded
+   inputs, detections equal to decode + NMS of the same heads on the CPU,
+   2 frames' heads against the CPU's within STEM2_HEAD_TOL of scale and
+   nearer on average than e5m2 storage moves the CPU's heads, latency and
+   device busy.  The MJPG fixture (``tests/fixtures/video``) read by
+   ``torchfcn.serve.video``: its frames and a copy without Huffman tables
+   (``video_without_dht``) against the digests the CPU tests record, its
+   stamps, host ms a frame; its frames through the flagship graph (each
+   RectsMsg against direct Detector calls, the kernels against their plain
+   versions on the last dispatch), ``cli replay --video`` and ``cli launch
+   --video --video-stride 2 --max-frames 5`` over the flagship launch file
+   (stamps published at the source's cadence, frames published equal
+   processed).
 
 Then one JSON line of the stream phase's numbers, one of the families'
 numbers, one of the training runs' numbers, one of the data phase's, one
 of the gates', one of the mesh phase's, one of the records phase's, one
-of the tools phase's, one of the compositor phase's, one JSON line of
-per-kernel numbers (with each
+of the tools phase's, one of the compositor phase's, one of the inputs
+phase's, one JSON line of per-kernel numbers (with each
 kernel's launches per dispatch of the stream graphs, per training step,
 per step fed by the compositor, per validation, per gate training step
 and per gate scoring, per rank in each run of the mesh phase, in the
-records chain's training and eval and per voc_fixture scoring; the stem
-tail on halo rows as a row of its own), each kernel's time beside its
+records chain's training and eval and per voc_fixture scoring, in the
+e5m2 batch without store_stem2 and per dispatch of the video replay; the
+stem tail on halo rows as a row of its own), each kernel's time beside its
 bound (``bound_ms``: the larger of the bytes it must move over 3.35 TB/s
 and its operations over the peak rate of their type, 989 TFLOP/s on the
 bf16 tensor cores, 67 TFLOP/s in float32, or 4.18e12/s on the special-
@@ -1119,18 +1150,19 @@ def graph_against_cpu(rng) -> dict:
     return dict(frames=len(frames), heads_max_abs_diff=diff, detections=dets)
 
 
-def stream_kernels(calls: dict) -> dict:
+def stream_kernels(calls: dict, phase: str = "stream") -> dict:
     """The kernels against their plain versions on the inputs of the
     flagship node's last dispatch: groupRectangles exactly, both LRN
     kernels bit-equal (bf16)."""
     out = check_recorded_lrn({k: calls[k] for k in ("lrn_cuda",
                                                     "lrn_maxpool_cuda")},
-                             STREAM_MICRO_BATCH, "stream",
+                             STREAM_MICRO_BATCH, phase,
                              "the node's last dispatch")
     for name, row in out.items():
         if row["bit_equal_share"] != 1.0:
-            raise AssertionError(f"stream: {name} not bit-equal to its plain "
-                                 f"version on the node's last dispatch")
+            raise AssertionError(f"{phase}: {name} not bit-equal to its "
+                                 f"plain version on the node's last "
+                                 f"dispatch")
     # the groupRectangles kernel's inputs, as vote_boxes_batched passes them
     args = dict(calls["vote_boxes_batched"][0])
     rects = args["propose_boxes"].float().contiguous()
@@ -4754,10 +4786,12 @@ def manifest_files(root: str, work: str) -> tuple:
     return manifest, backgrounds
 
 
-def manifest_training(root: str, counters, card: str) -> dict:
+def manifest_training(root: str, counters, card: str, workers: int = 0,
+                      phase: str = "compositor") -> dict:
     """``cli train --manifest`` (no --device-data) on the card, fed by the
-    host compositor, under torch.profiler: finite losses, steps/s over the
-    run and the device's idle share."""
+    host compositor (in this process, or in ``workers`` processes), under
+    torch.profiler: finite losses, steps/s and the device's idle share
+    over the command and over the Trainer's loop."""
     import shutil
     import tempfile
     work = tempfile.mkdtemp(prefix="torchfcn_manifest_")
@@ -4767,13 +4801,13 @@ def manifest_training(root: str, counters, card: str) -> dict:
             "--backgrounds", *backgrounds, "--max-iter", str(MANIFEST_STEPS),
             "--batch-size", str(MANIFEST_BATCH), "--snapshot-dir",
             os.path.join(work, "snap"), "--metrics-out", metrics,
-            "--device", "cuda"]
+            "--workers", str(workers), "--device", "cuda"]
     for c in counters.values():
         c.launches = 0
     out = []
     t = time.perf_counter()
     _, rows = device_profile(lambda: out.append(cli_json(argv)),
-                             "compositor: train --manifest")
+                             f"{phase}: train --manifest")
     wall = time.perf_counter() - t
     launches = {k: c.launches for k, c in counters.items()}
     trained = json.loads(out[-1][-1])
@@ -4784,19 +4818,28 @@ def manifest_training(root: str, counters, card: str) -> dict:
               for h in history]
     if trained["trained_to"] != MANIFEST_STEPS or not losses or not all(
             l and np.isfinite(list(l.values())).all() for l in losses):
-        raise AssertionError(f"compositor: train --manifest gave {trained}, "
+        raise AssertionError(f"{phase}: train --manifest gave {trained}, "
                              f"losses {losses}")
     busy = sum(us for _, us, _ in rows) / 1e3
-    row = dict(steps=MANIFEST_STEPS, batch=MANIFEST_BATCH, wall_s=wall,
-               steps_s=MANIFEST_STEPS / wall, losses=losses,
+    # the Trainer's own clock, from its construction to the last step (its
+    # display's img/s): the command's wall less the CLI's set-up, the
+    # snapshot and the profile's processing
+    loop = MANIFEST_STEPS * MANIFEST_BATCH / history[-1]["img_per_sec"]
+    row = dict(steps=MANIFEST_STEPS, batch=MANIFEST_BATCH, workers=workers,
+               wall_s=wall, steps_s=MANIFEST_STEPS / wall, losses=losses,
                busy_ms=busy, idle_share=1 - busy / (1e3 * wall),
-               launches=launches)
-    log("compositor", f"cli train --recipe bounding_box --manifest (host "
-        f"compositor) B={MANIFEST_BATCH} 224x224, {MANIFEST_STEPS} steps in "
+               loop_s=loop, loop_ms_step=1e3 * loop / MANIFEST_STEPS,
+               loop_idle_share=1 - busy / (1e3 * loop), launches=launches)
+    log(phase, f"cli train --recipe bounding_box --manifest --workers "
+        f"{workers} (host compositor) B={MANIFEST_BATCH} 224x224, "
+        f"{MANIFEST_STEPS} steps in "
         f"{wall:.2f} s under torch.profiler ({row['steps_s']:.2f} steps/s, "
         f"model build and composition included): losses {losses}; device "
-        f"busy {busy:.1f} ms, idle {100 * row['idle_share']:.1f} %; kernel "
-        f"launches {launches} (vgg_detectnet_train has no LRN); on {card}")
+        f"busy {busy:.1f} ms, idle {100 * row['idle_share']:.1f} %; the "
+        f"Trainer's loop {loop:.2f} s ({row['loop_ms_step']:.1f} ms a step "
+        f"from its construction, idle {100 * row['loop_idle_share']:.1f} "
+        f"%); kernel launches {launches} (vgg_detectnet_train has no LRN); "
+        f"on {card}")
     return row
 
 
@@ -4910,6 +4953,494 @@ def phase_compositor(counters, card: str) -> dict:
                 limits=dict(mAP=HOST_GATE_MAP_LIMIT), seconds=seconds)
 
 
+# --- 16. inputs: the worker pool, e5m2 without store_stem2, video ---
+
+# the worker pool: a small pool (net, batch, least batches read) held batch
+# by batch against each worker's serial pipeline, read until each worker
+# has sent POOL_SMALL_EACH batches (at most POOL_SMALL_MAX in all: a worker
+# that starts late finds the queue filled by the other); scenes/s at these
+# worker
+# counts at NET x NET, B = BATCH, over POOL_BATCHES_PER_WORKER batches a
+# worker after the first; train --manifest through POOL_TRAIN_WORKERS
+POOL_SMALL = (64, 2, 6)
+POOL_SMALL_EACH, POOL_SMALL_MAX = 2, 400
+POOL_WORKERS = (1, 2, 4, 8)
+POOL_BATCHES_PER_WORKER = 4
+POOL_TRAIN_WORKERS = 8
+# e5m2 storage without store_stem2: the first STEM2_CPU_FRAMES frames'
+# heads on the card within STEM2_HEAD_TOL of their largest magnitude of the
+# CPU's, and nearer the CPU's on average than e5m2 storage moves the CPU's
+# own heads (its exact bf16 heads: the control)
+STEM2_CPU_FRAMES = 2
+STEM2_HEAD_TOL = 3e-2
+# the video fixture (tests/fixtures/video/README.md); the sha256 of its
+# frames as cv.VideoCapture(path, cv.CAP_OPENCV_MJPEG) decodes them, and of
+# video_without_dht's copy: recorded on the CPU by tests/test_torch_video.py
+VIDEO_FIXTURE = os.path.join(REPO_ROOT, "tests", "fixtures", "video",
+                             "voc_mini_15fps.avi")
+VIDEO_FRAMES, VIDEO_FPS = 12, 15.0
+VIDEO_FRAMES_SHA256 = \
+    "ae058f6d51897099142eb58b2d4b946db1f9314cb993196011b31dfabc00c2f7"
+VIDEO_STRIPPED_SHA256 = \
+    "2ff060e0ce1c9f929300d4a7b5c98186481608a34a71cad0e67e1bd51197b431"
+VIDEO_DECODE_REPS = 3
+# launch --video's decimation
+VIDEO_STRIDE, VIDEO_MAX = 2, 5
+LAUNCH_SPEC = os.path.join(REPO_ROOT, "examples",
+                           "fcn_object_detector.launch.json")
+
+
+def frames_digest(frames) -> str:
+    """sha256 over the frames' bytes, in order."""
+    import hashlib
+    h = hashlib.sha256()
+    for f in frames:
+        h.update(np.ascontiguousarray(f).tobytes())
+    return h.hexdigest()
+
+
+def jpeg_without_dht(data: bytes) -> bytes:
+    """A JPEG file with the DHT segments before its first scan cut out."""
+    import struct
+    out, pos = [data[:2]], 2
+    while data[pos + 1] != 0xDA:
+        (length,) = struct.unpack(">H", data[pos + 2:pos + 4])
+        if data[pos + 1] != 0xC4:
+            out.append(data[pos:pos + 2 + length])
+        pos += 2 + length
+    out.append(data[pos:])
+    return b"".join(out)
+
+
+def rewrite_avi(data: bytes, frame_fn) -> bytes:
+    """``data``'s RIFF tree with each frame chunk (``##dc`` / ``##db`` in
+    ``LIST movi``) replaced by ``frame_fn(body)``; the sizes of the lists
+    around them and the ``idx1`` entries (offset from ``movi``, size)
+    follow."""
+    import struct
+    out, moved = bytearray(), {}
+
+    def chunk(pos: int, movi_old, movi_new) -> int:
+        fourcc = data[pos:pos + 4]
+        (size,) = struct.unpack_from("<I", data, pos + 4)
+        start = len(out)
+        out.extend(fourcc + bytes(4))
+        if fourcc in (b"RIFF", b"LIST"):
+            kind = data[pos + 8:pos + 12]
+            out.extend(kind)
+            if kind == b"movi":
+                movi_old, movi_new = pos + 8, start + 8
+            inner, end = pos + 12, pos + 8 + size
+            while inner + 8 <= end:
+                inner = chunk(inner, movi_old, movi_new)
+        else:
+            body = data[pos + 8:pos + 8 + size]
+            if movi_old is not None and fourcc[2:] in (b"dc", b"db"):
+                body = frame_fn(body)
+                moved[pos - movi_old] = (start - movi_new, len(body))
+            elif fourcc == b"idx1":
+                body = bytearray(body)
+                for e in range(0, len(body) - 15, 16):
+                    old = struct.unpack_from("<II", body, e + 8)
+                    struct.pack_into("<II", body, e + 8,
+                                     *moved.get(old[0], old))
+            out.extend(body)
+        n = len(out) - start - 8
+        struct.pack_into("<I", out, start + 4, n)
+        if n & 1:
+            out.append(0)
+        return pos + 8 + size + (size & 1)
+
+    pos = 0
+    while pos + 8 <= len(data):
+        pos = chunk(pos, None, None)
+    return bytes(out)
+
+
+def video_without_dht(data: bytes) -> bytes:
+    """The MJPG AVI ``data`` as a camera writes it: each frame re-encoded
+    with Annex K's Huffman tables (``jpeg.encode``, ``cv.imencode`` at q95)
+    and their DHT segments cut out.  (The fixture's own frames carry
+    optimised tables, so cutting those out would leave frames that decode
+    to other pixels.)"""
+    from torchfcn.data import jpeg
+    return rewrite_avi(data, lambda frame: jpeg_without_dht(
+        jpeg.encode(jpeg.decode(frame))))
+
+
+def check_reaped(procs: list, what: str) -> None:
+    """Raises if a pool's process is alive, unreaped or still a child."""
+    import multiprocessing as mp
+    live = {c.pid for c in mp.active_children()}
+    left = [p.pid for p in procs
+            if p.is_alive() or p.exitcode is None or p.pid in live]
+    if left:
+        raise AssertionError(f"inputs: {what} left processes {left} after "
+                             f"close()")
+
+
+def pool_streams(samples, backgrounds, work: str, card: str) -> dict:
+    """POOL_SMALL through 2 workers (depth 2): every batch received is, by
+    digest, the next batch of exactly one worker's serial
+    ``CompositeTrainPipeline(seed + 1000 * w)``, and both workers
+    contribute; a worker's error (a missing file) reaches the consumer as
+    RuntimeError with its traceback; no process is left after close()."""
+    from torchfcn.core.config import GridConfig
+    from torchfcn.data.hardbench import BOX_CAPACITY, hard_data_config
+    from torchfcn.data.manifest import MaskSample
+    from torchfcn.data.parallel import ParallelCompositePipeline
+    from torchfcn.data.pipeline import CompositeTrainPipeline
+    net, batch, n = POOL_SMALL
+    grid, cfg = GridConfig(net, net, 16, 4), hard_data_config(batch)
+    seed, workers = SEED + 3, 2
+    serial = [CompositeTrainPipeline(samples, grid, cfg,
+                                     backgrounds=backgrounds,
+                                     box_capacity=BOX_CAPACITY,
+                                     seed=seed + 1000 * w)
+              for w in range(workers)]
+    pending = [batch_digest(p.batch(batch)) for p in serial]
+    owners = []
+    t = time.perf_counter()
+    with ParallelCompositePipeline(samples, grid, cfg,
+                                   backgrounds=backgrounds,
+                                   box_capacity=BOX_CAPACITY,
+                                   workers=workers, depth=2,
+                                   seed=seed) as pool:
+        for b in pool:
+            d = batch_digest(b)
+            if pending.count(d) != 1:
+                raise AssertionError(
+                    f"inputs: the pool's batch {len(owners)} is the next "
+                    f"batch of {pending.count(d)} workers' serial "
+                    f"pipelines, not of one")
+            owners.append(pending.index(d))
+            pending[owners[-1]] = batch_digest(
+                serial[owners[-1]].batch(batch))
+            if len(owners) >= n and min(owners.count(w) for w in range(
+                    workers)) >= POOL_SMALL_EACH:
+                break
+            if len(owners) == POOL_SMALL_MAX:
+                raise AssertionError(f"inputs: {POOL_SMALL_MAX} batches of "
+                                     f"the pool came from workers "
+                                     f"{sorted(set(owners))} alone")
+    wall = time.perf_counter() - t
+    check_reaped(pool._procs, "the small pool")
+    n = len(owners)
+    bad = [MaskSample(os.path.join(work, "missing.png"),
+                      os.path.join(work, "missing_mask.png"), 0,
+                      np.array([1, 1, 8, 8], np.int32))]
+    with ParallelCompositePipeline(bad, grid, hard_data_config(1),
+                                   workers=1, depth=2) as faulty:
+        try:
+            faulty.batch()
+        except RuntimeError as e:
+            relayed = str(e)
+        else:
+            raise AssertionError("inputs: a worker's error was not relayed")
+    if not relayed.startswith("scene-builder worker failed") \
+            or "Traceback" not in relayed:
+        raise AssertionError(f"inputs: the relayed error reads {relayed!r}")
+    check_reaped(faulty._procs, "the faulty pool")
+    log("inputs", f"worker pool, {workers} workers, {net}x{net} B={batch}: "
+        f"{n} batches in {wall:.2f} s (spawn included) from workers "
+        f"{[owners.count(w) for w in range(workers)]} (batches each), each "
+        f"by digest the next batch of that worker's serial "
+        f"CompositeTrainPipeline(seed + 1000 w); a worker's missing file "
+        f"relayed as RuntimeError with its traceback; no process left after "
+        f"close(); on {card}")
+    return dict(workers=workers, batches=n, owners=owners, wall_s=wall,
+                relayed=relayed.splitlines()[-1])
+
+
+def pool_throughput(samples, backgrounds, card: str) -> dict:
+    """Composed scenes a second at NET x NET, B = BATCH (hard_data_config,
+    the PNG sources): one serial pipeline in this process (its second
+    batch), then a pool of each of POOL_WORKERS workers (``throughput``
+    over POOL_BATCHES_PER_WORKER batches a worker, after a first batch,
+    whose wait from the pool's start is reported apart)."""
+    from torchfcn.core.config import GridConfig
+    from torchfcn.data.hardbench import BOX_CAPACITY, hard_data_config
+    from torchfcn.data.parallel import ParallelCompositePipeline
+    from torchfcn.data.pipeline import CompositeTrainPipeline
+    grid, cfg = GridConfig(NET, NET, 16, 4), hard_data_config(BATCH)
+    kw = dict(backgrounds=backgrounds, box_capacity=BOX_CAPACITY, seed=SEED)
+    serial = CompositeTrainPipeline(samples, grid, cfg, **kw)
+    serial.batch(BATCH)                 # the background cache filled
+    t = time.perf_counter()
+    serial.batch(BATCH)
+    rows = {"serial": dict(scenes_s=BATCH / (time.perf_counter() - t))}
+    for workers in POOL_WORKERS:
+        t = time.perf_counter()
+        with ParallelCompositePipeline(samples, grid, cfg, workers=workers,
+                                       **kw) as pool:
+            pool.batch()
+            first_s = time.perf_counter() - t
+            rate = pool.throughput(POOL_BATCHES_PER_WORKER * workers)
+        check_reaped(pool._procs, f"the pool of {workers}")
+        rows[str(workers)] = dict(scenes_s=rate, first_batch_s=first_s,
+                                  wall_s=time.perf_counter() - t)
+    log("inputs", f"scenes/s at {NET}x{NET} B={BATCH} (hard_data_config, "
+        f"PNG sources): " + ", ".join(
+            f"{k} {v['scenes_s']:.2f}" + (f" (first batch after "
+                                          f"{v['first_batch_s']:.2f} s)"
+                                          if "first_batch_s" in v else "")
+            for k, v in rows.items()) + f"; on {card}")
+    return rows
+
+
+def stem2_detector(rng, counters, card: str) -> dict:
+    """``Detector("googlenet_detectnet", model_kwargs={"store_dtype":
+    e5m2})`` (store_stem2 False, bf16 compute) on BATCH seeded NET x NET
+    frames: the lrn, lrn_maxpool and groupRectangles kernels once each,
+    the stem tail never; LRN1's input e5m2 values widened to bf16; both
+    LRN kernels against their plain versions on their recorded inputs;
+    detections equal to decode + NMS of the same heads on the CPU; the
+    first STEM2_CPU_FRAMES frames' heads against the port's CPU path, with
+    e5m2 storage's own effect on the CPU (exact bf16 heads) as the
+    control; batch latency and device busy."""
+    from torchfcn.models import layers
+    from torchfcn.serve.detector import Detector
+    from torchfcn.serve.profile import bias_heads
+    what = "googlenet_detectnet e5m2 without store_stem2"
+    kw = {"store_dtype": torch.float8_e5m2}
+    det = Detector("googlenet_detectnet", max_candidates=K,
+                   dtype=torch.bfloat16, rng_seed=SEED, device="cuda",
+                   model_kwargs=kw)
+    bias_heads(det)
+    frames = rng.integers(0, 256, (BATCH, NET, NET, 3), dtype=np.uint8)
+    calls = {"lrn_cuda": [], "lrn_maxpool_cuda": []}
+    with recorded_calls(layers, "lrn_cuda", calls["lrn_cuda"]), \
+            recorded_calls(layers, "lrn_maxpool_cuda",
+                           calls["lrn_maxpool_cuda"]):
+        res, launches = run_counted(det, frames, counters,
+                                    ("lrn", "lrn_maxpool", "group_rects"),
+                                    what)
+    if launches["stem_tail"] or any(launches[k] != 1 for k in (
+            "lrn", "lrn_maxpool", "group_rects")):
+        raise AssertionError(f"inputs: {what} launched {launches}")
+    x = calls["lrn_cuda"][0]["x"]
+    if x.dtype != torch.bfloat16 or not torch.equal(
+            x, x.to(torch.float8_e5m2).to(torch.bfloat16)):
+        raise AssertionError(f"inputs: {what}: LRN1 read {x.dtype} values "
+                             f"that are not e5m2's")
+    plain = check_recorded_lrn(calls, BATCH, "inputs", what)
+    heads = check_against_cpu(det, frames, res, what)
+    n = STEM2_CPU_FRAMES
+    state = {k: v.cpu() for k, v in det.model.state_dict().items()}
+    cpu_heads = []
+    for model_kwargs in (kw, None):
+        cpu = Detector("googlenet_detectnet", config=det.config,
+                       dtype=torch.bfloat16, rng_seed=SEED, device="cpu",
+                       model_kwargs=model_kwargs)
+        cpu.model.load_state_dict(state)
+        with torch.inference_mode():
+            cpu_heads.append(cpu._forward(torch.from_numpy(frames[:n])))
+    against_cpu = {}
+    for name, card_h, want, exact in zip(("coverage", "bboxes"), heads,
+                                         *cpu_heads):
+        got = card_h[:n].float().cpu()
+        scale = float(want.float().abs().max())
+        err = float((got - want.float()).abs().max()) / scale
+        mean = float((got - want.float()).abs().mean())
+        storage = float((want.float() - exact.float()).abs().mean())
+        against_cpu[name] = dict(max_err_of_scale=err, mean_abs_err=mean,
+                                 storage_mean_abs=storage,
+                                 equal_share=float((got == want.float())
+                                                   .float().mean()))
+        if not (err <= STEM2_HEAD_TOL and mean < storage):
+            raise AssertionError(f"inputs: {what}: {name} on the card "
+                                 f"against the cpu {against_cpu[name]}, "
+                                 f"bound {STEM2_HEAD_TOL} of scale")
+    latency = batch_latency(det, frames)
+    busy = busy_ms(lambda: det(frames))
+    log("inputs", f"Detector {what}, bf16 compute, B={BATCH} {NET}x{NET} "
+        f"K={K}: {int(res.valid.sum())} detections equal to decode+NMS of "
+        f"the same heads on the cpu; launches {launches}; LRN kernels "
+        f"against plain on their recorded inputs "
+        f"{ {k: v['bit_equal_share'] for k, v in plain.items()} } bit-equal; "
+        f"heads of {n} frames against the cpu's {against_cpu} (bound "
+        f"{STEM2_HEAD_TOL} of scale); {latency * 1e3:.3f} ms a batch (median "
+        f"of {REPS}, host clock), device busy {busy:.3f} ms; on {card}")
+    return dict(launches=launches, detections=int(res.valid.sum()),
+                against_plain=plain, against_cpu=against_cpu,
+                latency_ms=latency * 1e3, busy_ms=busy)
+
+
+def video_inputs(counters, card: str, work: str) -> dict:
+    """The video fixture through ``torchfcn.serve.video`` (its frames and
+    a copy without Huffman tables against the recorded digests, its stamps,
+    host ms a frame), the flagship graph fed its frames (replay --video's
+    graph: each RectsMsg against direct Detector calls, the kernels against
+    their plain versions on the last dispatch), then ``cli replay --video``
+    and ``cli launch --video`` over examples/fcn_object_detector.launch.json
+    (its overlay_topic, not ported, left out) with the stamps published."""
+    from torchfcn.serve import bus as bus_module
+    from torchfcn.serve.video import read_video_frames
+    frames, stamps = read_video_frames(VIDEO_FIXTURE)
+    want = [i / VIDEO_FPS for i in range(VIDEO_FRAMES)]
+    if len(frames) != VIDEO_FRAMES or stamps != want \
+            or frames_digest(frames) != VIDEO_FRAMES_SHA256:
+        raise AssertionError(f"inputs: the video fixture read as "
+                             f"{len(frames)} frames, stamps {stamps}, not "
+                             f"the recorded ones")
+    with open(VIDEO_FIXTURE, "rb") as f:
+        stripped = video_without_dht(f.read())
+    path = os.path.join(work, "no_dht.avi")
+    with open(path, "wb") as f:
+        f.write(stripped)
+    sframes, sstamps = read_video_frames(path)
+    if sstamps != want or frames_digest(sframes) != VIDEO_STRIPPED_SHA256:
+        raise AssertionError("inputs: the video without Huffman tables did "
+                             "not read as recorded")
+    walls = []
+    for _ in range(VIDEO_DECODE_REPS):
+        t = time.perf_counter()
+        read_video_frames(VIDEO_FIXTURE)
+        walls.append(time.perf_counter() - t)
+    decode_ms = 1e3 * statistics.median(walls) / VIDEO_FRAMES
+    _, _, replayed, calls = replay_graph(
+        "googlenet_detectnet", counters, frames,
+        ("lrn", "lrn_maxpool", "group_rects"), ("stem_tail",),
+        "replay --video graph googlenet_detectnet bf16 K=256", record=True)
+    against_plain = stream_kernels(calls, "inputs")
+    replay_out = json.loads(cli_json(["replay", "--video", VIDEO_FIXTURE,
+                                      "--device", "cuda"])[-1])
+    if replay_out != {"frames_processed": VIDEO_FRAMES}:
+        raise AssertionError(f"inputs: cli replay --video printed "
+                             f"{replay_out}")
+    with open(LAUNCH_SPEC) as f:
+        spec = json.load(f)
+    spec["fcn_object_detector"]["params"].pop("overlay_topic")
+    spec_path = os.path.join(work, "detector.launch.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    published = []
+    with recorded_calls(bus_module.TopicBus, "publish", published):
+        launch_out = json.loads(cli_json([
+            "launch", spec_path, "--video", VIDEO_FIXTURE, "--video-stride",
+            str(VIDEO_STRIDE), "--max-frames", str(VIDEO_MAX), "--device",
+            "cuda"])[-1])
+    sent = [c["stamp"] for c in published if c["topic"] == "image"]
+    if sent != want[::VIDEO_STRIDE][:VIDEO_MAX] \
+            or launch_out["frames_published"] != VIDEO_MAX \
+            or launch_out["processed"] != {"fcn_object_detector": VIDEO_MAX}:
+        raise AssertionError(f"inputs: cli launch --video printed "
+                             f"{launch_out}, stamps {sent}")
+    log("inputs", f"video {os.path.basename(VIDEO_FIXTURE)}: "
+        f"{VIDEO_FRAMES} frames 320x240 at {VIDEO_FPS} fps, digest and "
+        f"stamps as recorded, and of the copy without Huffman tables; "
+        f"{decode_ms:.2f} ms a frame read and decoded on the host (median "
+        f"of {VIDEO_DECODE_REPS} reads); cli replay --video: {replay_out}; "
+        f"cli launch --video --video-stride {VIDEO_STRIDE} --max-frames "
+        f"{VIDEO_MAX}: {launch_out['frames_published']} frames published "
+        f"with stamps {sent}, processed {launch_out['processed']}; on {card}")
+    return dict(frames=VIDEO_FRAMES, decode_ms=decode_ms, replay=replayed,
+                against_plain=against_plain, cli_replay=replay_out,
+                cli_launch=launch_out, launch_stamps=sent)
+
+
+def pool_probe(root: str, card: str) -> dict:
+    """pool_streams and pool_throughput over the hard sources written as
+    PNGs under ``root`` (run in a fresh process by phase_inputs)."""
+    from torchfcn.data.manifest import read_mask_manifest
+    work = os.path.join(root, "files")
+    os.makedirs(work, exist_ok=True)
+    manifest, backgrounds = manifest_files(root, work)
+    samples = read_mask_manifest(manifest)
+    return dict(streams=pool_streams(samples, backgrounds, work, card),
+                throughput=pool_throughput(samples, backgrounds, card))
+
+
+def pool_training(root: str, card: str) -> dict:
+    """manifest_training through POOL_TRAIN_WORKERS workers, the four
+    kernel wrappers as counters (run in a fresh process by phase_inputs;
+    the CUDA context is made before the clock starts)."""
+    from torchfcn.ops.cuda import build
+    from torchfcn.ops.cuda.group_rects import group_rectangles_cuda
+    from torchfcn.ops.cuda.lrn import lrn_cuda
+    from torchfcn.ops.cuda.lrn_pool import lrn_maxpool_cuda
+    from torchfcn.ops.cuda.stem import stem_tail_cuda
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build.library()
+    torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    counters = {"group_rects": group_rectangles_cuda, "lrn": lrn_cuda,
+                "lrn_maxpool": lrn_maxpool_cuda, "stem_tail": stem_tail_cuda}
+    return manifest_training(root, counters, card,
+                             workers=POOL_TRAIN_WORKERS, phase="inputs")
+
+
+def in_fresh_process(call: str, *args) -> dict:
+    """``chip_smoke.<call>(*args)`` in a fresh Python process started with
+    ``-c``.  A spawned worker pool's children import the parent's main
+    script first: this script's (torch included) delayed their first batch
+    by 11-15 s on an H100 host (PERF.md, section 6), where ``python -m
+    torchfcn.cli``'s costs them the CLI module alone; under ``-c`` they
+    import no main script.  Relays the process's log lines; returns the
+    JSON of its last line."""
+    code = ("import json, sys\n"
+            "import chip_smoke\n"
+            f"out = chip_smoke.{call}(*json.loads(sys.argv[1]))\n"
+            "print(json.dumps(out), flush=True)\n")
+    proc = subprocess.run([sys.executable, "-c", code, json.dumps(args)],
+                          cwd=REPO_ROOT, capture_output=True, text=True,
+                          env=dict(os.environ, PYTHONPATH=REPO_ROOT),
+                          timeout=600)
+    lines = proc.stdout.splitlines()
+    if proc.returncode or not lines:
+        raise AssertionError(f"inputs: {call} in a fresh process exited "
+                             f"{proc.returncode}: {proc.stderr[-3000:]}")
+    for line in lines[:-1]:
+        print(line, flush=True)
+    return json.loads(lines[-1])
+
+
+def phase_inputs(rng, counters, card: str, serial_manifest: dict) -> dict:
+    """The worker pool, e5m2 storage without store_stem2 and camera
+    recordings on the card (the module docstring's phase 16); returns
+    their readings.  ``serial_manifest`` is phase 15's train --manifest
+    reading, printed beside the pool's.  The pools run in fresh processes
+    (in_fresh_process), as they would under ``python -m torchfcn.cli``."""
+    import shutil
+    import tempfile
+    t_phase = time.perf_counter()
+    seconds = {}
+    root = tempfile.mkdtemp(prefix="torchfcn_inputs_")
+    work = os.path.join(root, "files")
+    os.makedirs(work)
+    t = time.perf_counter()
+    probe = in_fresh_process("pool_probe", root, card)
+    seconds["pool_probe"] = time.perf_counter() - t
+    t = time.perf_counter()
+    train = in_fresh_process("pool_training", root, card)
+    seconds["pool_train"] = time.perf_counter() - t
+    log("inputs", f"train --manifest B={MANIFEST_BATCH} 224x224 through "
+        f"{POOL_TRAIN_WORKERS} workers: {train['steps_s']:.3f} steps/s over "
+        f"the command, idle {100 * train['idle_share']:.1f} %, "
+        f"{train['loop_ms_step']:.1f} ms a step in the Trainer's loop, idle "
+        f"{100 * train['loop_idle_share']:.1f} %; phase 15's --workers 0 in "
+        f"this run {serial_manifest['steps_s']:.3f} steps/s, idle "
+        f"{100 * serial_manifest['idle_share']:.1f} %, "
+        f"{serial_manifest['loop_ms_step']:.1f} ms a step, idle "
+        f"{100 * serial_manifest['loop_idle_share']:.1f} %; on {card}")
+    t = time.perf_counter()
+    stem2 = stem2_detector(rng, counters, card)
+    seconds["stem2"] = time.perf_counter() - t
+    t = time.perf_counter()
+    video = video_inputs(counters, card, work)
+    seconds["video"] = time.perf_counter() - t
+    shutil.rmtree(root)
+    seconds["phase"] = time.perf_counter() - t_phase
+    log("inputs", f"phase took {seconds['phase']:.1f} s: " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in seconds.items() if k != "phase"))
+    return dict(pool=dict(train=train, **probe,
+                          serial_train={k: serial_manifest[k] for k in (
+                              "steps_s", "idle_share", "busy_ms", "wall_s",
+                              "loop_ms_step", "loop_idle_share")}),
+                stem2=stem2, video=video, seconds=seconds)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4956,6 +5487,7 @@ def main() -> int:
     records = phase_records(counters, card)
     tools = phase_tools(counters, card)
     compositor = phase_compositor(counters, card)
+    inputs = phase_inputs(rng, counters, card, compositor["manifest"])
 
     meta = {
         "group_rects": ("torchfcn/csrc/group_rects.cu",
@@ -4997,6 +5529,9 @@ def main() -> int:
                     host_gate_scoring_launches={
                         tag: n[name] for tag, n in
                         compositor["gate"]["scoring_launches"].items()},
+                    stem2_launches=inputs["stem2"]["launches"][name],
+                    video_launches_per_dispatch=inputs["video"]["replay"][
+                        "launches_per_dispatch"][name],
                     **rows[name]) for name in counters]
     rows_voc = records["gate"]["against_plain"]
     next(k for k in kernels if k["name"] == "group_rects")["voc_gate"] = {
@@ -5018,6 +5553,7 @@ def main() -> int:
     print(json.dumps({"card": card, "records": records}), flush=True)
     print(json.dumps({"card": card, "tools": tools}), flush=True)
     print(json.dumps({"card": card, "compositor": compositor}), flush=True)
+    print(json.dumps({"card": card, "inputs": inputs}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -152,8 +152,18 @@ def test_unreadable_frames_are_skipped(weights, frames, tmp_path, capsys):
     got = _port_cli(["detect", bad, frames[0], "--model", MODEL,
                      "--weights", weights], capsys)
     assert [r["image"] for r in got] == [frames[0]]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(["replay", "--video", "x.avi", "--device", "cpu"])
+    # a camera recording of the first two frames streams as they do
+    video = str(tmp_path / "cam.avi")
+    w = cv.VideoWriter(video, cv.VideoWriter_fourcc(*"MJPG"), 5.0,
+                       (224, 224))
+    for path in frames[:2]:
+        w.write(cv.imread(path))
+    w.release()
+    got = _port_cli(["replay", "--video", video, "--model", MODEL,
+                     "--weights", weights], capsys)
+    assert got[-1] == {"frames_processed": 2}
+    assert [r["frame"] for r in got[:-1]] == [0, 1]
+    assert all(r["detections"] > 0 for r in got[:-1])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cli.main(["detect", frames[0], "--overlay-dir", str(tmp_path),
                   "--device", "cpu"])

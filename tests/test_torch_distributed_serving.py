@@ -24,8 +24,10 @@ ranks.
   same values), writing a snapshot, ``--metrics-out`` and the label
   manifest tpufcn writes for the same manifest; ``train --manifest``
   without ``--device-data`` for 2 steps on the host compositor, its first
-  batch tpufcn's for the same manifest and seed; ``--workers`` and
-  ``--inspect-data`` raise, naming their ROADMAP items.
+  batch tpufcn's for the same manifest and seed; ``--manifest --workers
+  2`` through the worker pool, each batch one worker's serial pipeline's;
+  ``--records --workers 2`` from the records, no pool started;
+  ``--inspect-data`` raises, naming its ROADMAP item.
 * ``torchfcn.entry.dryrun_multichip(4)``."""
 
 import dataclasses
@@ -293,22 +295,97 @@ def _host_training(tmp_path, monkeypatch):
     assert d.max() <= 1 and int((d > 0).sum()) <= CLI_CUBIC_VALUES
 
 
-@pytest.mark.parametrize("flags,match", [
+def _records_with_workers(tmp_path, capsys, monkeypatch):
+    """``train --records --workers 2``: the records train, the workers are
+    ignored (no pool starts), as in tpufcn."""
+    from torchfcn import cli
+    from torchfcn.data import parallel
+    _, val, _ = _scene_files(tmp_path)
+    prefix = str(tmp_path / "rec" / "ds")
+    os.makedirs(os.path.dirname(prefix))
+    cli.main(["records", "--manifest", val, "--out", prefix])
+
+    def no_pool(*a, **kw):
+        raise AssertionError("--records started a worker pool")
+
+    monkeypatch.setattr(parallel.ParallelCompositePipeline, "__init__",
+                        no_pool)
+    capsys.readouterr()
+    cli.main(["train", "--device", "cpu", "--records", prefix, "--workers",
+              "2", "--max-iter", "2", "--batch-size", "2", "--snapshot-dir",
+              str(tmp_path / "snap")])
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["trained_to"] == 2
+
+
+def _manifest_with_workers(tmp_path, capsys, monkeypatch):
+    """``train --manifest --workers 2`` trains from the pool: every batch
+    the Trainer takes is, by digest, the next batch of one worker's serial
+    CompositeTrainPipeline (seed 1000 * w, the CLI's default seed), and the
+    pool's processes are gone when the command returns."""
+    from chip_smoke import batch_digest as digest
+    from test_torch_parallel import within
+    from torchfcn import cli, recipes
+    from torchfcn.data import parallel
+    from torchfcn.data.manifest import read_mask_manifest
+    from torchfcn.data.pipeline import CompositeTrainPipeline
+    manifest, _, bg = _scene_files(tmp_path)
+    pools, batches = [], []
+    real_init, real_get = (parallel.ParallelCompositePipeline.__init__,
+                           parallel.ParallelCompositePipeline._get)
+
+    def init(self, *a, **kw):
+        pools.append(self)
+        real_init(self, *a, **kw)
+
+    def get(self):
+        batches.append(real_get(self))
+        return batches[-1]
+
+    monkeypatch.setattr(parallel.ParallelCompositePipeline, "__init__", init)
+    monkeypatch.setattr(parallel.ParallelCompositePipeline, "_get", get)
+    capsys.readouterr()
+    within(lambda: cli.main([
+        "train", "--device", "cpu", "--manifest", manifest, "--backgrounds",
+        bg, "--workers", "2", "--max-iter", "2", "--batch-size", "2",
+        "--snapshot-dir", str(tmp_path / "snap")]), 180)
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["trained_to"] == 2 and len(pools) == 1 and len(batches) == 2
+    assert not any(p.is_alive() for p in pools[0]._procs)
+    cfg = recipes.get("bounding_box")
+    data = dataclasses.replace(cfg.data, batch_size=2)
+    serial = [CompositeTrainPipeline(read_mask_manifest(manifest), cfg.grid,
+                                     data, backgrounds=[bg], seed=1000 * w)
+              for w in range(2)]
+    pending = [digest(p.batch(2)) for p in serial]
+    for got in batches:
+        w = pending.index(digest(got))
+        pending[w] = digest(serial[w].batch(2))
+
+
+@pytest.mark.parametrize("flags,case", [
     (["--records", "r", "--workers", "2"], "the worker pool"),
     (["--manifest", "m", "--workers", "2"], "the worker pool"),
     (["--manifest"], None),
     (["--manifest", "m", "--device-data", "--inspect-data", "d"], "viz.py"),
 ])
-def test_cli_train_unported_flags_raise(flags, match, tmp_path, monkeypatch):
-    """The flags of parts not ported yet raise, naming their ROADMAP item;
-    ``--manifest`` alone trains on the host compositor."""
+def test_cli_train_unported_flags_raise(flags, case, tmp_path, capsys,
+                                        monkeypatch):
+    """``--inspect-data`` raises, naming its ROADMAP item (viz.py);
+    ``--records --workers`` trains from the records and ``--manifest
+    --workers`` through the worker pool (the pool's cases), ``--manifest``
+    alone on the host compositor."""
     from torchfcn import cli
-    if match is None:
+    if case == "the worker pool":
+        run = _records_with_workers if flags[0] == "--records" \
+            else _manifest_with_workers
+        run(tmp_path, capsys, monkeypatch)
+    elif case is None:
         _host_training(tmp_path, monkeypatch)
-        return
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP Queue 1, .*{match}"):
-        cli.main(["train", "--device", "cpu"] + flags)
+    else:
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP Queue 1, .*{case}"):
+            cli.main(["train", "--device", "cpu"] + flags)
 
 
 def test_cli_train_refuses_a_larger_world(monkeypatch):

@@ -122,8 +122,13 @@ def test_serving_flags():
     with pytest.raises(ValueError, match="bfloat16"):
         build("googlenet_detectnet_serving")(
             torch.zeros(1, 64, 64, 3, dtype=torch.uint8))
-    with pytest.raises(NotImplementedError, match="store_stem2"):
-        googlenet.GoogLeNetDetectNet(store_dtype=torch.float8_e5m2)
+    # e5m2 storage without store_stem2 (the JAX model's default) builds:
+    # conv1, pool1 and LRN1 stored e5m2 (tests/test_torch_stem2.py)
+    model = googlenet.GoogLeNetDetectNet(store_dtype=torch.float8_e5m2)
+    assert model.store_dtype == torch.float8_e5m2 and not model.store_stem2
+    heads = model.eval().to(torch.bfloat16)(
+        torch.zeros(1, 64, 64, 3, dtype=torch.uint8))
+    assert heads["bboxes"].shape == (1, 4, 4, 16)
     with pytest.raises(ValueError, match="e4m3"):
         googlenet.GoogLeNetDetectNet(store_dtype=torch.float8_e4m3fn,
                                      store_stem2=True)

@@ -28,14 +28,18 @@ Each prints JSON lines on stdout, as tpufcn's do (``records``, ``voc`` and
 Everything that runs a model runs on the card (``--device cuda``, the
 default) or on the CPU (``--device cpu``); ``records``, ``voc`` and
 ``convert`` run on the host, and so do the tracking and clustering of
-``refine`` and ``rank`` (their CNN codes run on ``--device``).  Not
-ported yet (ROADMAP Queue 1): ``--video`` (with tpufcn's ``--video-stride``
-and ``--max-frames``), ``--overlay-dir``, ``--workers`` (the host worker
-pool), ``--inspect-data`` and the other subcommands.
+``refine`` and ``rank`` (their CNN codes run on ``--device``).  ``replay``
+and ``launch`` read camera recordings (``--video``: MJPG AVIs, with
+``--video-stride`` and ``--max-frames``); ``train --manifest --workers N``
+composes in N host processes.  Not ported yet (ROADMAP Queue 1):
+``--overlay-dir``, ``--inspect-data`` and the other subcommands.
 
     python -m torchfcn.cli detect frame.png --model googlenet_detectnet
     python -m torchfcn.cli launch examples/fcn_point_map.launch.json \
         --frames a.png b.png
+    python -m torchfcn.cli replay --video cam.avi --video-stride 2
+    python -m torchfcn.cli train --manifest crops.txt --backgrounds bg/*.png \
+        --workers 7
     python -m torchfcn.cli gates --family fcn32s
     python -m torchfcn.cli voc tests/fixtures/voc_mini --out man \
         --classes ball crate cone
@@ -56,6 +60,7 @@ pool), ``--inspect-data`` and the other subcommands.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import sys
 import time
@@ -65,29 +70,23 @@ def _log(msg: str) -> None:
     print(msg, file=sys.stderr, flush=True)
 
 
-WORKERS_MISSING = ("--workers composes in a pool of host processes, which "
-                   "is not ported yet: ROADMAP Queue 1, the worker pool "
-                   "(ParallelCompositePipeline)")
 INSPECT_MISSING = ("--inspect-data draws rect overlays, which are not "
                    "ported yet: ROADMAP Queue 1, viz.py and the overlay")
 
 
 def _cmd_train(args):
     """Train a recipe (``tpufcn/cli.py::_cmd_train``) from record shards or
-    from scenes composed on the host or the device.  The layout is the
-    recipe's
-    ``mesh`` (every recipe is 1 x 1, as in tpufcn); a process started in a
-    larger world raises."""
+    from scenes composed on the host (in this process, or in ``--workers``
+    processes) or on the device.  The layout is the recipe's ``mesh``
+    (every recipe is 1 x 1, as in tpufcn); a process started in a larger
+    world raises."""
     import dataclasses
     import os
     from torchfcn import recipes
     from torchfcn.data.imageio import imread
     from torchfcn.data.raster import resize_linear_u8
     from torchfcn.models import get_spec
-    from torchfcn.train.trainer import Trainer
 
-    if args.workers:
-        raise NotImplementedError(WORKERS_MISSING)
     if args.inspect_data:
         raise NotImplementedError(INSPECT_MISSING)
     if not args.records and not args.manifest:
@@ -116,6 +115,7 @@ def _cmd_train(args):
     # seg supervision follows the model's heads, not the recipe's name
     heads = get_spec(cfg.model).heads
     with_seg = "seg" in heads
+    pool = contextlib.nullcontext()
     if args.records:
         # record shards store boxes and labels, not masks: a seg-only model
         # cannot train from them, a joint one trains its detection heads
@@ -136,6 +136,11 @@ def _cmd_train(args):
         samples = read_mask_manifest(
             args.manifest, snapshot_label_manifest=snapshot_label_path(
                 os.path.join(cfg.snapshot_dir, "labels")))
+        if args.device_data and args.workers:
+            raise SystemExit(
+                "--device-data composes on the accelerator; --workers "
+                "(host worker pool) does not apply — pass one or the "
+                "other")
         if args.device_data:
             from torchfcn.data.device_compositor import (
                 DeviceCompositePipeline)
@@ -143,10 +148,25 @@ def _cmd_train(args):
                 samples, cfg.grid, cfg.data, backgrounds=args.backgrounds,
                 imread=imread, resize=resize_linear_u8, device=args.device,
                 seed=cfg.seed)
+        elif args.workers > 0:
+            from torchfcn.data.parallel import ParallelCompositePipeline
+            pipe = pool = ParallelCompositePipeline(
+                samples, cfg.grid, cfg.data, backgrounds=args.backgrounds,
+                workers=args.workers)
         else:
             from torchfcn.data.pipeline import CompositeTrainPipeline
             pipe = CompositeTrainPipeline(samples, cfg.grid, cfg.data,
                                           backgrounds=args.backgrounds)
+    with pool:      # the worker pool stops when training ends, or fails
+        _fit(args, cfg, pipe, heads, with_seg)
+
+
+def _fit(args, cfg, pipe, heads, with_seg):
+    """``_cmd_train``'s validator, Trainer and run over ``pipe``."""
+    import dataclasses
+    from torchfcn.data.imageio import imread
+    from torchfcn.data.raster import resize_linear_u8
+    from torchfcn.train.trainer import Trainer
 
     validator = None
     if args.eval_every:
@@ -363,10 +383,6 @@ def _cmd_pretrain(args):
     print(json.dumps(res))
 
 
-VIDEO_MISSING = ("--video (camera-recording frames) is not ported yet: "
-                 "ROADMAP Queue 1, video.py")
-
-
 def _read_frames(paths):
     """(path, BGR frame) of each readable JPEG or PNG; the others are
     reported on stderr and skipped, as tpufcn skips what cv2 cannot read."""
@@ -406,11 +422,17 @@ def _cmd_detect(args):
 
 
 def _cmd_replay(args):
-    """Frame files stream through the topic bus, one per stamp; with
-    ``--micro-batch`` the batched throughput mode instead."""
+    """Frame files, or a camera recording's frames (``--video``), stream
+    through the topic bus, one per stamp; with ``--micro-batch`` the
+    batched throughput mode instead."""
+    if args.video and args.images:
+        raise SystemExit("give image files OR --video, not both")
     if args.video:
-        raise NotImplementedError(VIDEO_MISSING)
-    frames = [img for _, img in _read_frames(args.images)]
+        from torchfcn.serve.video import read_video_frames
+        frames, _ = read_video_frames(args.video, stride=args.video_stride,
+                                      max_frames=args.max_frames or None)
+    else:
+        frames = [img for _, img in _read_frames(args.images)]
     if not frames:
         raise SystemExit("no readable frames")
     if args.micro_batch > 0:
@@ -459,11 +481,13 @@ def _cmd_launch(args):
     frames through it.  ``--device`` goes to every node that does not set
     its own.  With ``--bus tcp://host:port`` the graph attaches to a broker
     (``cli bus``), and ``--nodes`` runs a subset of the spec in this
-    process: together they split one launch file across processes."""
+    process: together they split one launch file across processes.  A
+    camera recording (``--video``) goes out with its source stamps, so that
+    stamp-based synchronizers see the capture cadence."""
     from torchfcn.serve.launch import launch
 
-    if args.video:
-        raise NotImplementedError(VIDEO_MISSING)
+    if args.frames and args.video:
+        raise SystemExit("give --frames OR --video, not both")
     with open(args.graph) as f:
         spec = json.load(f)
     if args.nodes:
@@ -490,9 +514,16 @@ def _cmd_launch(args):
         print(json.dumps({"nodes": sorted(graph.nodes),
                           "followed": [n.follow() for n in followers]}))
         return
-    if args.frames:
-        for i, (_, img) in enumerate(_read_frames(args.frames)):
-            graph.bus.publish(args.topic, img, stamp=float(i))
+    if args.frames or args.video:
+        if args.video:
+            from torchfcn.serve.video import iter_video_frames
+            source = iter_video_frames(args.video, stride=args.video_stride,
+                                       max_frames=args.max_frames or None)
+        else:
+            source = ((float(i), img) for i, (_, img) in
+                      enumerate(_read_frames(args.frames)))
+        for stamp, img in source:
+            graph.bus.publish(args.topic, img, stamp=stamp)
             graph.spin()
             published += 1
         graph.close()    # part-filled micro-batches at stream end
@@ -715,7 +746,11 @@ def main(argv=None):
                                        "detector node")
     rp.add_argument("images", nargs="*")
     rp.add_argument("--video", default=None,
-                    help="video file as the frame source (not ported yet)")
+                    help="camera recording (MJPG AVI) as the frame source")
+    rp.add_argument("--video-stride", type=int, default=1,
+                    help="keep every Nth video frame")
+    rp.add_argument("--max-frames", type=int, default=0,
+                    help="cap the number of video frames (0 = all)")
     rp.add_argument("--model", default="googlenet_detectnet")
     rp.add_argument("--weights", default=None)
     rp.add_argument("--micro-batch", type=int, default=0,
@@ -744,7 +779,12 @@ def main(argv=None):
     ln.add_argument("--frames", nargs="*", default=None,
                     help="image files to publish through the graph")
     ln.add_argument("--video", default=None,
-                    help="video file to publish (not ported yet)")
+                    help="camera recording (MJPG AVI) to publish through "
+                         "the graph, with its source stamps")
+    ln.add_argument("--video-stride", type=int, default=1,
+                    help="keep every Nth video frame")
+    ln.add_argument("--max-frames", type=int, default=0,
+                    help="cap the number of video frames (0 = all)")
     ln.add_argument("--topic", default="image",
                     help="topic the frames are published on")
     ln.add_argument("--spin", type=int, default=1,
@@ -813,8 +853,7 @@ def main(argv=None):
                    help="initial weights: a .caffemodel (lenient, by name) "
                         "or a Trainer snapshot directory")
     t.add_argument("--workers", type=int, default=0,
-                   help="host compositor worker processes (not ported: "
-                        "raises)")
+                   help="scene-builder worker processes (0 = in-process)")
     t.add_argument("--warmup", type=int, default=0, metavar="N",
                    help="linear lr warmup over the first N steps")
     t.add_argument("--inspect-data", default=None, metavar="DIR",

@@ -5,7 +5,8 @@ bit for bit and byte for byte, as OpenCV's libjpeg-turbo computes them.
 
 Decoding reads baseline (SOF0) and extended (SOF1) sequential Huffman
 files of 8-bit samples with 1 or 3 components, any sampling factors up to
-2 x 2, in one or several scans, with or without restart intervals; a
+2 x 2, in one or several scans, with or without restart intervals, and
+without Huffman tables (Motion-JPEG frames: Annex K's, as libjpeg); a
 progressive, arithmetic-coded, lossless or 12-bit file raises ``ValueError``
 naming the file.  libjpeg-turbo's defaults are followed throughout: the
 JDCT_ISLOW integer inverse DCT, "fancy" (triangular) upsampling of h2v1,
@@ -368,6 +369,7 @@ def parse(data: bytes, name: str = "<buffer>"):
         raise ValueError(f"{name}: not a JPEG file")
     quant: Dict[int, np.ndarray] = {}
     huff = np.zeros((8, 272), np.uint8)
+    defined = set()                   # rows of ``huff`` a DHT has set
     comps: List[_Component] = []
     size = None
     restart, adobe_transform, jfif = 0, None, False
@@ -445,14 +447,16 @@ def parse(data: bytes, name: str = "<buffer>"):
                 row[:16] = np.frombuffer(counts, np.uint8)
                 row[16:16 + n] = np.frombuffer(body[i + 17:i + 17 + n],
                                                np.uint8)
+                defined.add(4 * tc + th)
                 i += 17 + n
         elif marker == 0xDD:
             (restart,) = struct.unpack(">H", body[:2])
         elif marker == 0xDA:
             if coefs is None:
                 raise ValueError(f"{name}: JPEG scan before its frame header")
-            pos = _decode_scan(data, pos, body, comps, quant, huff, restart,
-                               coefs, name)
+            _standard_tables(huff, defined)
+            pos = _decode_scan(data, pos, body, comps, quant, huff, defined,
+                               restart, coefs, name)
         elif marker == 0xE0 and body.startswith(b"JFIF\x00"):
             jfif = True
         elif marker == 0xEE and body.startswith(b"Adobe") and len(body) >= 12:
@@ -462,8 +466,27 @@ def parse(data: bytes, name: str = "<buffer>"):
     return comps, coefs, size, jfif, adobe_transform
 
 
+# rows of the decoder's Huffman tables (4 * class + slot) that libjpeg
+# fills with Annex K's tables when no DHT has set them: Motion-JPEG frames
+# (a camera's AVI1 frames) leave them out
+_STANDARD_ROWS = {0: "dc_luma", 1: "dc_chroma", 4: "ac_luma", 5: "ac_chroma"}
+
+
+def _standard_tables(huff: np.ndarray, defined: set) -> None:
+    """Annex K's tables in DC and AC slots 0 and 1 where no DHT set them, as
+    libjpeg's ``std_huff_tables`` installs them when its Huffman decoder
+    starts."""
+    for row, table in _STANDARD_ROWS.items():
+        if row not in defined:
+            spec = STD_HUFFMAN[table]
+            huff[row] = 0
+            huff[row, :len(spec)] = np.frombuffer(spec, np.uint8)
+            defined.add(row)
+
+
 def _decode_scan(data: bytes, pos: int, body: bytes, comps, quant, huff,
-                 restart: int, coefs: np.ndarray, name: str) -> int:
+                 defined: set, restart: int, coefs: np.ndarray,
+                 name: str) -> int:
     n = body[0]
     desc, scan = [], []
     for i in range(n):
@@ -475,6 +498,10 @@ def _decode_scan(data: bytes, pos: int, body: bytes, comps, quant, huff,
             if c.tq not in quant:
                 raise ValueError(f"{name}: no quantisation table {c.tq}")
             c.quant = quant[c.tq]         # latched at its first scan
+        for row in (tables >> 4, 4 + (tables & 15)):
+            if row not in defined:
+                raise ValueError(f"{name}: Huffman table {row >> 2}/"
+                                 f"{row & 3} was not defined")
         scan.append(c)
         desc.append((tables >> 4, tables & 15, c))
     if n == 1:

@@ -21,7 +21,10 @@ in e5m2 and computes in bf16: conv1's output, pool1's, the stem tail's (LRN1
 through pool2, one ``stem_tail`` kernel whose intermediates stay on the
 chip) and, with ``store_blocks``, the inception branches and concats.  Pools
 on e5m2 run through bf16 and stay e5m2 (the max is exact); convs read their
-e5m2 input widened to bf16.
+e5m2 input widened to bf16.  Without ``store_stem2`` (the JAX model's
+default) only conv1, pool1 and LRN1 are stored e5m2: LRN1 runs the ``lrn``
+kernel on pool1's values widened to bf16, and conv2_reduce, conv2 and the
+fused LRN2 + pool2 stay bf16, as on the bf16 path.
 """
 
 from __future__ import annotations
@@ -122,12 +125,9 @@ class GoogLeNetDetectNet(ZooModel):
         if store_dtype not in (None, torch.float8_e5m2):
             raise ValueError(f"store_dtype must be None or float8_e5m2 "
                              f"(e4m3 saturates conv1), got {store_dtype}")
-        if store_dtype is not None and not store_stem2:
-            raise NotImplementedError(
-                "e5m2 storage without store_stem2 (LRN1 stored, conv2 and "
-                "LRN2 not) is used by no preset and is not ported")
         # as in the JAX model, the store_* flags do nothing without a dtype
         self.store_dtype = store_dtype
+        self.store_stem2 = store_stem2
         self.conv1 = CaffeConv(3, 64, 7, stride=2, pad=3)
         self.norm1 = LRN()
         self.conv2_reduce = CaffeConv(64, 64, 1)
@@ -154,10 +154,16 @@ class GoogLeNetDetectNet(ZooModel):
         # deploy_transform: Power shift -127 (deploy.prototxt:9-18)
         x = nchw((frames.to(torch.float32) - 127.0).to(dtype))
         x = F.relu(self.conv1(x, mesh))
-        if store is None:
-            x = max_pool(x, 3, 2, mesh=mesh)               # pool1/3x3_s2
-            x = self.norm1(x)                              # pool1/norm1
-            x = F.relu(self.conv2_reduce(x))
+        if store is None or not self.store_stem2:
+            if store is None:
+                x = max_pool(x, 3, 2, mesh=mesh)           # pool1/3x3_s2
+                x = self.norm1(x)                          # pool1/norm1
+            else:
+                # pool1 stays e5m2 (the max is exact); LRN1 computes on its
+                # values widened to bf16 and is stored e5m2
+                x = max_pool(x.to(store), 3, 2, mesh=mesh)
+                x = self.norm1(x.to(dtype)).to(store)
+            x = F.relu(self.conv2_reduce(x.to(dtype)))
             x = F.relu(self.conv2(x, mesh))
             x = self.norm2_pool2(x, mesh)      # conv2/norm2 + pool2/3x3_s2
         else:
