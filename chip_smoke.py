@@ -288,8 +288,17 @@ plain versions are full float32.
    RectsMsg against direct Detector calls, the kernels against their plain
    versions on the last dispatch), ``cli replay --video`` and ``cli launch
    --video --video-stride 2 --max-frames 5`` over the flagship launch file
-   (stamps published at the source's cadence, frames published equal
-   processed).
+   with its overlay topic, on weights whose heads fire (stamps published
+   at the source's cadence, frames published equal processed, each
+   overlay equal to ``viz.draw_detections`` of its frame and the node's
+   RectsMsg, the kernels against their plain versions on the graph's last
+   dispatch).  The overlay on the host (``torchfcn.serve.viz``): the
+   digest of ``draw_detections`` on seeded inputs (all 95 printable
+   characters, boxes past the edges, 20 classes) against the one the CPU
+   tests record from tpufcn's cv2 drawing, host ms an overlay of a
+   448x448 frame with 10 detections; ``cli detect --overlay-dir`` and
+   ``cli train --records --inspect-data`` with ``--device cuda``, each
+   PNG read back equal to ``draw_detections`` of its frame and boxes.
 
 Then one JSON line of the stream phase's numbers, one of the families'
 numbers, one of the training runs' numbers, one of the data phase's, one
@@ -1150,14 +1159,14 @@ def graph_against_cpu(rng) -> dict:
     return dict(frames=len(frames), heads_max_abs_diff=diff, detections=dets)
 
 
-def stream_kernels(calls: dict, phase: str = "stream") -> dict:
+def stream_kernels(calls: dict, phase: str = "stream",
+                   batch: int = STREAM_MICRO_BATCH) -> dict:
     """The kernels against their plain versions on the inputs of the
-    flagship node's last dispatch: groupRectangles exactly, both LRN
-    kernels bit-equal (bf16)."""
+    flagship node's last dispatch (of ``batch`` frames): groupRectangles
+    exactly, both LRN kernels bit-equal (bf16)."""
     out = check_recorded_lrn({k: calls[k] for k in ("lrn_cuda",
                                                     "lrn_maxpool_cuda")},
-                             STREAM_MICRO_BATCH, phase,
-                             "the node's last dispatch")
+                             batch, phase, "the node's last dispatch")
     for name, row in out.items():
         if row["bit_equal_share"] != 1.0:
             raise AssertionError(f"{phase}: {name} not bit-equal to its "
@@ -4974,18 +4983,23 @@ POOL_TRAIN_WORKERS = 8
 STEM2_CPU_FRAMES = 2
 STEM2_HEAD_TOL = 3e-2
 # the video fixture (tests/fixtures/video/README.md); the sha256 of its
-# frames as cv.VideoCapture(path, cv.CAP_OPENCV_MJPEG) decodes them, and of
+# frames as cv.VideoCapture(path) decodes them (FFmpeg), and of
 # video_without_dht's copy: recorded on the CPU by tests/test_torch_video.py
 VIDEO_FIXTURE = os.path.join(REPO_ROOT, "tests", "fixtures", "video",
                              "voc_mini_15fps.avi")
 VIDEO_FRAMES, VIDEO_FPS = 12, 15.0
 VIDEO_FRAMES_SHA256 = \
-    "ae058f6d51897099142eb58b2d4b946db1f9314cb993196011b31dfabc00c2f7"
+    "432546ac96f9f9e29aa24ae735f87b0a0724727d0f34db0b3e87f112a7fa23fd"
 VIDEO_STRIPPED_SHA256 = \
-    "2ff060e0ce1c9f929300d4a7b5c98186481608a34a71cad0e67e1bd51197b431"
+    "a953846bbc8f77f3dca7b57aca44f77a56c023fa196750efc2477f57fb833251"
 VIDEO_DECODE_REPS = 3
 # launch --video's decimation
 VIDEO_STRIDE, VIDEO_MAX = 2, 5
+# the sha256 of viz.draw_detections(*overlay_case()), recorded on the CPU
+# from tpufcn's cv2 drawing by tests/test_torch_viz.py; timing repeats
+OVERLAY_SHA256 = \
+    "09777e27f7aa7f5d0cd36686da787fd3a0717db5175c05cd05cbe1d3ff6e0077"
+OVERLAY_REPS = 20
 LAUNCH_SPEC = os.path.join(REPO_ROOT, "examples",
                            "fcn_object_detector.launch.json")
 
@@ -5273,8 +5287,12 @@ def video_inputs(counters, card: str, work: str) -> dict:
     graph: each RectsMsg against direct Detector calls, the kernels against
     their plain versions on the last dispatch), then ``cli replay --video``
     and ``cli launch --video`` over examples/fcn_object_detector.launch.json
-    (its overlay_topic, not ported, left out) with the stamps published."""
+    on firing weights, with the stamps published, each overlay against
+    draw_detections and the kernels against their plain versions on the
+    graph's last dispatch."""
+    from torchfcn.models import layers
     from torchfcn.serve import bus as bus_module
+    from torchfcn.serve import detector
     from torchfcn.serve.video import read_video_frames
     frames, stamps = read_video_frames(VIDEO_FIXTURE)
     want = [i / VIDEO_FPS for i in range(VIDEO_FRAMES)]
@@ -5310,12 +5328,20 @@ def video_inputs(counters, card: str, work: str) -> dict:
                              f"{replay_out}")
     with open(LAUNCH_SPEC) as f:
         spec = json.load(f)
-    spec["fcn_object_detector"]["params"].pop("overlay_topic")
+    params = spec["fcn_object_detector"]["params"]
+    params["pretrained_weights"] = firing_snapshot(work)
     spec_path = os.path.join(work, "detector.launch.json")
     with open(spec_path, "w") as f:
         json.dump(spec, f)
     published = []
-    with recorded_calls(bus_module.TopicBus, "publish", published):
+    calls = {"lrn_cuda": [], "lrn_maxpool_cuda": [],
+             "vote_boxes_batched": []}
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(recorded_calls(bus_module.TopicBus, "publish",
+                                           published))
+        for module, fn in ((layers, "lrn_cuda"), (layers, "lrn_maxpool_cuda"),
+                           (detector, "vote_boxes_batched")):
+            stack.enter_context(recorded_calls(module, fn, calls[fn]))
         launch_out = json.loads(cli_json([
             "launch", spec_path, "--video", VIDEO_FIXTURE, "--video-stride",
             str(VIDEO_STRIDE), "--max-frames", str(VIDEO_MAX), "--device",
@@ -5326,6 +5352,9 @@ def video_inputs(counters, card: str, work: str) -> dict:
             or launch_out["processed"] != {"fcn_object_detector": VIDEO_MAX}:
         raise AssertionError(f"inputs: cli launch --video printed "
                              f"{launch_out}, stamps {sent}")
+    overlays = launch_overlays(published, params["overlay_topic"])
+    launch_plain = stream_kernels({k: v[-1:] for k, v in calls.items()},
+                                  "inputs", batch=1)
     log("inputs", f"video {os.path.basename(VIDEO_FIXTURE)}: "
         f"{VIDEO_FRAMES} frames 320x240 at {VIDEO_FPS} fps, digest and "
         f"stamps as recorded, and of the copy without Huffman tables; "
@@ -5333,10 +5362,164 @@ def video_inputs(counters, card: str, work: str) -> dict:
         f"of {VIDEO_DECODE_REPS} reads); cli replay --video: {replay_out}; "
         f"cli launch --video --video-stride {VIDEO_STRIDE} --max-frames "
         f"{VIDEO_MAX}: {launch_out['frames_published']} frames published "
-        f"with stamps {sent}, processed {launch_out['processed']}; on {card}")
+        f"with stamps {sent}, processed {launch_out['processed']}, "
+        f"{overlays['overlays']} overlays ({overlays['boxes']} boxes) each "
+        f"equal to draw_detections of its frame and RectsMsg; on {card}")
     return dict(frames=VIDEO_FRAMES, decode_ms=decode_ms, replay=replayed,
                 against_plain=against_plain, cli_replay=replay_out,
-                cli_launch=launch_out, launch_stamps=sent)
+                cli_launch=launch_out, launch_stamps=sent,
+                launch_overlays=overlays, launch_against_plain=launch_plain)
+
+
+def firing_snapshot(work: str) -> str:
+    """A Trainer snapshot directory of seeded googlenet_detectnet weights
+    whose heads are scaled by 0.1 and biased, so that cells fire together
+    (tests/test_torch_launch.py's weights)."""
+    from torchfcn.models import build
+    model = build("googlenet_detectnet")
+    model.init_weights(torch.Generator().manual_seed(SEED))
+    with torch.no_grad():
+        model.cvg.weight.mul_(0.1)
+        model.cvg.bias.fill_(8.0)
+        model.bbox.weight.mul_(0.1)
+        model.bbox.bias.copy_(torch.tensor([-24.0, -24.0, 120.0, 120.0])
+                              .repeat(model.bbox.bias.numel() // 4))
+    snap = os.path.join(work, "firing")
+    os.makedirs(snap, exist_ok=True)
+    torch.save({"step": 1, "params": model.state_dict()},
+               os.path.join(snap, "1.pt"))
+    return snap
+
+
+def launch_overlays(published: list, topic: str) -> dict:
+    """Each overlay a launch graph published (recorded TopicBus.publish
+    calls) against ``viz.draw_detections`` of the frame and the RectsMsg
+    published under its stamp; raises unless every frame has one and some
+    draw boxes."""
+    from torchfcn.serve.viz import draw_detections
+    by_topic = {}
+    for c in published:
+        by_topic.setdefault(c["topic"], {})[c["stamp"]] = c["data"]
+    frames, rects = by_topic.get("image", {}), by_topic.get(RECTS_TOPIC, {})
+    overlays = by_topic.get(topic, {})
+    if sorted(overlays) != sorted(frames) or sorted(rects) != sorted(frames):
+        raise AssertionError(f"inputs: overlays at {sorted(overlays)}, "
+                             f"rects at {sorted(rects)}, frames at "
+                             f"{sorted(frames)}")
+    boxes = 0
+    for stamp, img in overlays.items():
+        msg = rects[stamp]
+        pts = msg.points
+        dets = [([*pts[2 * i], *pts[2 * i + 1]], label, conf) for i, (
+            label, conf) in enumerate(zip(msg.labels, msg.confidences))]
+        if not np.array_equal(img, draw_detections(frames[stamp], dets)):
+            raise AssertionError(f"inputs: the overlay at {stamp} is not "
+                                 f"draw_detections of its frame and rects")
+        boxes += len(dets)
+    if not boxes:
+        raise AssertionError("inputs: the launch graph drew no box")
+    return dict(overlays=len(overlays), boxes=boxes)
+
+
+def overlay_case() -> tuple:
+    """(frame, detections, names) of the overlay's digest: a seeded
+    448x448 frame; 8 boxes labelled 0 to 7 in bands 50 rows apart, so that
+    no box covers an earlier text (8 names that hold the 95 printable ASCII
+    characters), and 2 labelled 12 and 19 past the frame's edges."""
+    rng = np.random.default_rng(SEED)
+    frame = rng.integers(0, 256, (448, 448, 3), dtype=np.uint8)
+    dets = []
+    for label in range(8):
+        x1, y1 = rng.uniform(2, 20), 40 + 50 * label + rng.uniform(0, 3)
+        w, h = rng.uniform(0, 150), rng.uniform(0, 30)
+        dets.append(([x1, y1, x1 + w, y1 + h], label,
+                     float(rng.uniform(0, 6))))
+    dets += [([300.5, 430.2, 500.9, 520.0], 12, 0.693),
+             ([420.0, -20.0, 470.0, 20.7], 19, 2.5)]
+    printable = "".join(chr(c) for c in range(32, 127))
+    names = [printable[i:i + 12] for i in range(0, 95, 12)]
+    return frame, dets, names
+
+
+def overlay_outputs(card: str, work: str, snapshot: str) -> dict:
+    """The overlay on the card's host: draw_detections of overlay_case
+    against the digest recorded from tpufcn's cv2 drawing, its host ms;
+    ``cli detect --overlay-dir`` over 2 video frames and ``cli train
+    --records --inspect-data`` from records of them, on the card, each
+    PNG read back against draw_detections of its frame and boxes."""
+    from torchfcn.data.imageio import imread, imwrite
+    from torchfcn.data.pipeline import RecordTrainPipeline
+    from torchfcn.recipes import get as recipe
+    from torchfcn.serve.video import read_video_frames
+    from torchfcn.serve.viz import draw_detections
+    case = overlay_case()
+    if frames_digest([draw_detections(*case)]) != OVERLAY_SHA256:
+        raise AssertionError("inputs: draw_detections of overlay_case is not "
+                             "the recorded overlay")
+    walls = []
+    for _ in range(OVERLAY_REPS):
+        t = time.perf_counter()
+        draw_detections(*case)
+        walls.append(time.perf_counter() - t)
+    overlay_ms = 1e3 * statistics.median(walls)
+    frames, _ = read_video_frames(VIDEO_FIXTURE, max_frames=2)
+    paths = []
+    for i, f in enumerate(frames):
+        paths.append(os.path.join(work, f"frame{i}.png"))
+        imwrite(paths[-1], f)
+    out_dir = os.path.join(work, "overlays")
+    lines = [json.loads(x) for x in cli_json([
+        "detect", *paths, "--model", "googlenet_detectnet", "--weights",
+        snapshot, "--overlay-dir", out_dir, "--device", "cuda"])]
+    boxes = 0
+    for path, frame, line in zip(paths, frames, lines):
+        dets = [(d["box"], d["label"], d["confidence"])
+                for d in line["detections"]]
+        boxes += len(dets)
+        png = os.path.join(out_dir, os.path.basename(path)[:-4] + "_det.png")
+        if not np.array_equal(imread(png), draw_detections(frame, dets)):
+            raise AssertionError(f"inputs: {png} is not draw_detections of "
+                                 f"its frame and detections")
+    if len(lines) != len(paths) or not boxes:
+        raise AssertionError(f"inputs: cli detect --overlay-dir printed "
+                             f"{lines}")
+    manifest = os.path.join(work, "boxes.txt")
+    with open(manifest, "w") as f:
+        f.write("".join(f"{p} 40 30 120 90 1\n" for p in paths))
+    prefix = os.path.join(work, "rec", "ds")
+    os.makedirs(os.path.dirname(prefix))
+    cli_json(["records", "--manifest", manifest, "--out", prefix])
+    inspect_dir = os.path.join(work, "inspect")
+    inspect = json.loads(cli_json([
+        "train", "--recipe", "bounding_box", "--records", prefix,
+        "--batch-size", "2", "--inspect-data", inspect_dir,
+        "--snapshot-dir", os.path.join(work, "snap"), "--device",
+        "cuda"])[-1])
+    cfg = recipe("bounding_box")
+    batch = next(iter(RecordTrainPipeline(prefix, cfg.grid, batch_size=2)))
+    for i in range(2):
+        dets = [([r[0], r[1], r[0] + r[2], r[1] + r[3]], int(l), 1.0)
+                for r, l, v in zip(batch["rects"][i], batch["labels"][i],
+                                   batch["valid"][i]) if v]
+        png = os.path.join(inspect_dir, f"b0_{i:02d}.png")
+        if not dets or not np.array_equal(
+                imread(png), draw_detections(batch["image"][i], dets)):
+            raise AssertionError(f"inputs: {png} is not draw_detections of "
+                                 f"the records' first batch")
+    if inspect != {"inspect_data": inspect_dir, "images": 2,
+                   "with_seg": False}:
+        raise AssertionError(f"inputs: train --inspect-data printed "
+                             f"{inspect}")
+    log("inputs", f"overlay: draw_detections of the seeded case (448x448, "
+        f"10 boxes, 95 characters) as recorded from tpufcn's cv2 drawing; "
+        f"{overlay_ms:.2f} ms an overlay on the host (median of "
+        f"{OVERLAY_REPS}); cli detect --overlay-dir: {len(paths)} PNGs, "
+        f"{boxes} boxes, each draw_detections of its frame; cli train "
+        f"--records --inspect-data: {inspect}, its PNGs draw_detections of "
+        f"the records' first batch; on {card}")
+    return dict(overlay_ms=overlay_ms, reps=OVERLAY_REPS,
+                detect_pngs=len(paths), detect_boxes=boxes,
+                inspect=inspect)
 
 
 def pool_probe(root: str, card: str) -> dict:
@@ -5430,6 +5613,9 @@ def phase_inputs(rng, counters, card: str, serial_manifest: dict) -> dict:
     t = time.perf_counter()
     video = video_inputs(counters, card, work)
     seconds["video"] = time.perf_counter() - t
+    t = time.perf_counter()
+    overlay = overlay_outputs(card, work, os.path.join(work, "firing"))
+    seconds["overlay"] = time.perf_counter() - t
     shutil.rmtree(root)
     seconds["phase"] = time.perf_counter() - t_phase
     log("inputs", f"phase took {seconds['phase']:.1f} s: " + ", ".join(
@@ -5438,7 +5624,7 @@ def phase_inputs(rng, counters, card: str, serial_manifest: dict) -> dict:
                           serial_train={k: serial_manifest[k] for k in (
                               "steps_s", "idle_share", "busy_ms", "wall_s",
                               "loop_ms_step", "loop_idle_share")}),
-                stem2=stem2, video=video, seconds=seconds)
+                stem2=stem2, video=video, overlay=overlay, seconds=seconds)
 
 
 def main() -> int:

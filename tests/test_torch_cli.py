@@ -164,9 +164,44 @@ def test_unreadable_frames_are_skipped(weights, frames, tmp_path, capsys):
     assert got[-1] == {"frames_processed": 2}
     assert [r["frame"] for r in got[:-1]] == [0, 1]
     assert all(r["detections"] > 0 for r in got[:-1])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(["detect", frames[0], "--overlay-dir", str(tmp_path),
-                  "--device", "cpu"])
+    # an unreadable input gets no overlay either
+    out = str(tmp_path / "overlays")
+    got = _port_cli(["detect", bad, frames[0], "--model", MODEL, "--weights",
+                     weights, "--overlay-dir", out], capsys)
+    assert [r["image"] for r in got] == [frames[0]]
+    stem = os.path.splitext(os.path.basename(frames[0]))[0]
+    assert os.listdir(out) == [f"{stem}_det.png"]
+
+
+def test_detect_overlay_dir_matches_tpufcn(weights, frames, tmp_path, capsys,
+                                          monkeypatch):
+    """``detect --overlay-dir``: tpufcn's ``<stem>_det.png`` files, pixel
+    for pixel, a second input of the same basename written as
+    ``<stem>_1_det.png``."""
+    again = tmp_path / "again"
+    again.mkdir()
+    dup = str(again / os.path.basename(frames[0]))
+    with open(frames[0], "rb") as f, open(dup, "wb") as g:
+        g.write(f.read())
+    inputs = [frames[0], frames[2], dup]
+    outs = {}
+    for key in ("port", "jax"):
+        out = str(tmp_path / key)
+        argv = ["detect", *inputs, "--model", MODEL, "--weights", weights,
+                "--overlay-dir", out]
+        lines = _port_cli(argv, capsys) if key == "port" \
+            else _jax_cli(argv, capsys, monkeypatch)
+        outs[key] = (lines, {f: cv.imread(os.path.join(out, f))
+                             for f in sorted(os.listdir(out))})
+    _same_detections(outs["port"][0], outs["jax"][0])
+    stem = os.path.splitext(os.path.basename(frames[0]))[0]
+    got, want = outs["port"][1], outs["jax"][1]
+    assert sorted(got) == sorted(want) == sorted([
+        f"{stem}_det.png", f"{stem}_1_det.png",
+        os.path.splitext(os.path.basename(frames[2]))[0] + "_det.png"])
+    for name in want:
+        assert np.array_equal(got[name], want[name]), name
+    assert not np.array_equal(got[f"{stem}_det.png"], cv.imread(frames[0]))
 
 
 def test_export_loads_back(weights, frames, tmp_path, capsys):

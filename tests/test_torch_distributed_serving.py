@@ -27,13 +27,16 @@ ranks.
   batch tpufcn's for the same manifest and seed; ``--manifest --workers
   2`` through the worker pool, each batch one worker's serial pipeline's;
   ``--records --workers 2`` from the records, no pool started;
-  ``--inspect-data`` raises, naming its ROADMAP item.
+  ``--inspect-data``: the first batch's overlay and seg PNGs, tpufcn's for
+  the same records (and, within the cubic bound, manifest), and the
+  device compositor's first batch drawn by ``torchfcn.serve.viz``.
 * ``torchfcn.entry.dryrun_multichip(4)``."""
 
 import dataclasses
 import json
 import os
 
+import cv2 as cv
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -363,19 +366,93 @@ def _manifest_with_workers(tmp_path, capsys, monkeypatch):
         pending[w] = digest(serial[w].batch(2))
 
 
+def _read_pngs(d):
+    return {f: cv.imread(os.path.join(d, f), cv.IMREAD_UNCHANGED)
+            for f in sorted(os.listdir(d))}
+
+
+def _inspect_data(flags, tmp_path, capsys, monkeypatch):
+    """``train --inspect-data``: one JSON line and the first batch as
+    ``b0_XX.png`` overlays (+ ``b0_XX_seg.png``).  From records, tpufcn's
+    PNGs exactly; from a manifest on the host compositor, tpufcn's within
+    its cubic upscale (values off by 1, at most CLI_CUBIC_VALUES); from
+    the device compositor, the port's own first batch drawn by
+    ``viz.draw_detections`` (its draws are not tpufcn's)."""
+    import tpufcn.cli as jcli
+    from torchfcn import cli, recipes
+    from torchfcn.data.device_compositor import DeviceCompositePipeline
+    from torchfcn.data.imageio import imread
+    from torchfcn.data.manifest import read_mask_manifest
+    from torchfcn.data.raster import resize_linear_u8
+    from torchfcn.serve.viz import draw_detections
+    manifest, val, bg = _scene_files(tmp_path)
+    prefix = str(tmp_path / "rec" / "ds")
+    if flags[0] == "--records":
+        os.makedirs(os.path.dirname(prefix))
+        cli.main(["records", "--manifest", val, "--out", prefix])
+    sub = {"r": prefix, "m": manifest}
+    argv = ["train", "--backgrounds", bg, "--batch-size", "2",
+            "--snapshot-dir", str(tmp_path / "snap")] + [sub.get(f, f)
+                                                         for f in flags]
+    port, jax_dir = str(tmp_path / "port"), str(tmp_path / "jax")
+    capsys.readouterr()
+    cli.main([port if a == "d" else a for a in argv] + ["--device", "cpu"])
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    seg = flags[0] == "--manifest"
+    assert out == {"inspect_data": port, "images": 2, "with_seg": seg}
+    got = _read_pngs(port)
+    names = [f"b0_{i:02d}{s}.png" for i in range(2)
+             for s in ("", "_seg")[:1 + seg]]
+    assert sorted(got) == sorted(names)
+    if "--device-data" in flags:
+        cfg = recipes.get("bounding_box")
+        data = dataclasses.replace(cfg.data, batch_size=2)
+        pipe = DeviceCompositePipeline.from_samples(
+            read_mask_manifest(manifest), cfg.grid, data, backgrounds=[bg],
+            imread=imread, resize=resize_linear_u8, device="cpu",
+            seed=cfg.seed)
+        batch = {k: v.numpy() for k, v in next(iter(pipe)).items()}
+        for i in range(2):
+            dets = [([r[0], r[1], r[0] + r[2], r[1] + r[3]], int(l), 1.0)
+                    for r, l, v in zip(batch["rects"][i], batch["labels"][i],
+                                       batch["valid"][i]) if v]
+            assert dets
+            assert np.array_equal(got[f"b0_{i:02d}.png"],
+                                  draw_detections(batch["image"][i], dets))
+            hi = max(int(batch["seg"][i].max()), 1)
+            assert np.array_equal(got[f"b0_{i:02d}_seg.png"], (
+                batch["seg"][i].astype(np.float32) * (255.0 / hi)).astype(
+                np.uint8))
+        return
+    monkeypatch.setenv("TPUFCN_PLATFORM", "cpu")
+    jcli.main([jax_dir if a == "d" else a for a in argv])
+    jout = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert jout == dict(out, inspect_data=jax_dir)
+    want = _read_pngs(jax_dir)
+    assert sorted(want) == sorted(got)
+    off = 0
+    for name in names:
+        d = np.abs(got[name].astype(int) - want[name])
+        off += int((d > 0).sum())
+        assert d.max() <= (1 if seg else 0), name
+    print(f"train --inspect-data {flags[0]}: {off} values off by 1")
+    assert off <= CLI_CUBIC_VALUES
+
+
 @pytest.mark.parametrize("flags,case", [
     (["--records", "r", "--workers", "2"], "the worker pool"),
     (["--manifest", "m", "--workers", "2"], "the worker pool"),
     (["--manifest"], None),
     (["--manifest", "m", "--device-data", "--inspect-data", "d"], "viz.py"),
+    (["--records", "r", "--inspect-data", "d"], "viz.py"),
+    (["--manifest", "m", "--inspect-data", "d"], "viz.py"),
 ])
 def test_cli_train_unported_flags_raise(flags, case, tmp_path, capsys,
                                         monkeypatch):
-    """``--inspect-data`` raises, naming its ROADMAP item (viz.py);
-    ``--records --workers`` trains from the records and ``--manifest
-    --workers`` through the worker pool (the pool's cases), ``--manifest``
-    alone on the host compositor."""
-    from torchfcn import cli
+    """``--inspect-data`` writes the first batch's overlays (viz.py's
+    cases); ``--records --workers`` trains from the records and
+    ``--manifest --workers`` through the worker pool (the pool's cases),
+    ``--manifest`` alone on the host compositor."""
     if case == "the worker pool":
         run = _records_with_workers if flags[0] == "--records" \
             else _manifest_with_workers
@@ -383,9 +460,7 @@ def test_cli_train_unported_flags_raise(flags, case, tmp_path, capsys,
     elif case is None:
         _host_training(tmp_path, monkeypatch)
     else:
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP Queue 1, .*{case}"):
-            cli.main(["train", "--device", "cpu"] + flags)
+        _inspect_data(flags, tmp_path, capsys, monkeypatch)
 
 
 def test_cli_train_refuses_a_larger_world(monkeypatch):

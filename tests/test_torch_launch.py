@@ -5,19 +5,20 @@ node (``torchfcn/pointmap``) against tpufcn's.
   serves: seeded, a ``.caffemodel`` file, a Trainer snapshot directory;
   a missing weights path raises ``FileNotFoundError("PROVIDE PRETRAINED
   MODEL: ...")`` as tpufcn's does.
-* Every ``examples/*.launch.json``: its node types resolve; the param
-  the port does not have yet (``overlay_topic``) raises
-  ``NotImplementedError`` naming its ROADMAP item, and the graph runs once
-  it is taken out (and ``mesh``, which needs a process group of several
-  ranks).
+* Every ``examples/*.launch.json``: its node types resolve and the graph
+  builds on the CPU with every param but ``mesh`` (which needs a process
+  group of several ranks); a detector's ``overlay_topic`` publishes, under
+  each frame's stamp, ``viz.draw_detections`` of the frame and the rects
+  the node publishes (weights with biased heads, so that boxes are
+  drawn).
 * The label tools' node types (capture, boundary_refinement,
   roi_classifier) build on the CPU and run on two synced frames; a
   boundary-refinement and a capture node on one graph publish and write
   what tpufcn's do.
-* The multichip example's params without the overlay at (data=2,
+* The multichip example's params, its overlay included, at (data=2,
   space=2) on 4 gloo CPU ranks, rank 0 leading and the others following:
-  the rects it publishes per frame equal a one-device graph's on the same
-  weights (a snapshot with biased heads) and frames.
+  the rects and overlays it publishes per frame equal a one-device graph's
+  on the same weights (a snapshot with biased heads) and frames.
 * The topology of ``tests/test_launch_integration.py`` without its capture
   node: a detector and a point-map node on one bus in each package, the
   same frame and synthetic organized cloud published; the processed
@@ -168,52 +169,16 @@ def _on_cpu(spec):
     return spec
 
 
-UNPORTED_PARAMS = ("overlay_topic",)
+# params whose node publishes the overlay (checked below)
+OVERLAY_PARAMS = ("overlay_topic",)
 # params that need a process group of several ranks (launched below)
 MULTI_RANK_PARAMS = ("mesh",)
 
 
-@pytest.mark.parametrize("name,unported", [
-    ("empty.launch.json", ()),
-    ("fcn_object_detector.launch.json", ("overlay_topic",)),
-    ("fcn_object_detector_multichip.launch.json", ("overlay_topic",)),
-    ("fcn_point_map.launch.json", ()),
-])
-def test_example_launch_specs(name, unported):
-    """Each unported param alone raises; without them the graph builds."""
-    from torchfcn.serve.launch import _NODE_TYPES
-    spec = _on_cpu(_example(name))
-    assert all(node["type"] in _NODE_TYPES for node in spec.values())
-    found = sorted(p for node in spec.values()
-                   for p in node.get("params", {}) if p in UNPORTED_PARAMS)
-    assert found == sorted(unported)
-
-    def without(keep):
-        trial = copy.deepcopy(spec)
-        for node in trial.values():
-            for p in UNPORTED_PARAMS + MULTI_RANK_PARAMS:
-                if p != keep:
-                    node.get("params", {}).pop(p, None)
-        return trial
-
-    for param in unported:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            launch(without(param))
-    graph = launch(without(None))
-    assert sorted(graph.nodes) == sorted(spec)
-
-
-def test_multichip_example_on_four_ranks(tmp_path):
+def _biased_snapshot(path) -> str:
+    """A Trainer snapshot of seeded GoogLeNet DetectNet weights whose heads
+    are scaled by 0.1 and biased, so that cells fire together."""
     from torchfcn.models import build
-    from torchfcn.parallel.distributed import run_ranks
-    from test_torch_mesh_ranks import rank_launch
-    spec = _on_cpu(_example("fcn_object_detector_multichip.launch.json"))
-    params = spec["fcn_object_detector"]["params"]
-    assert params.pop("overlay_topic") and params["mesh"] == {"data": 4,
-                                                              "space": 2}
-    params["mesh"] = {"data": 2, "space": 2}
-    # seeded weights with the heads scaled by 0.1 and biased, so that
-    # cells fire together, as a Trainer snapshot
     model = build("googlenet_detectnet")
     model.init_weights(torch.Generator().manual_seed(0))
     box = torch.tensor([-24.0, -24.0, 120.0, 120.0]).repeat(4)
@@ -222,28 +187,99 @@ def test_multichip_example_on_four_ranks(tmp_path):
         model.cvg.bias.fill_(8.0)
         model.bbox.weight.mul_(0.1)
         model.bbox.bias.copy_(box)
-    snap = tmp_path / "snap"
-    snap.mkdir()
-    torch.save({"step": 1, "params": model.state_dict()}, snap / "1.pt")
-    params["pretrained_weights"] = str(snap)
+    path.mkdir()
+    torch.save({"step": 1, "params": model.state_dict()}, path / "1.pt")
+    return str(path)
+
+
+def rects_as_detections(msg):
+    """A RectsMsg back as draw_detections' (box, label, confidence)."""
+    pts = msg.points
+    return [([*pts[2 * i], *pts[2 * i + 1]], label, conf)
+            for i, (label, conf) in enumerate(zip(msg.labels,
+                                                  msg.confidences))]
+
+
+@pytest.mark.parametrize("name,unported", [
+    ("empty.launch.json", ()),
+    ("fcn_object_detector.launch.json", ("overlay_topic",)),
+    ("fcn_object_detector_multichip.launch.json", ("overlay_topic",)),
+    ("fcn_point_map.launch.json", ()),
+])
+def test_example_launch_specs(name, unported, tmp_path):
+    """Each example builds on the CPU (``mesh`` taken out); a detector's
+    overlay param publishes each frame's overlay under its stamp."""
+    from torchfcn.serve.launch import _NODE_TYPES
+    from torchfcn.serve.viz import draw_detections
+    spec = _on_cpu(_example(name))
+    assert all(node["type"] in _NODE_TYPES for node in spec.values())
+    found = sorted(p for node in spec.values()
+                   for p in node.get("params", {}) if p in OVERLAY_PARAMS)
+    assert found == sorted(unported)
+    for node in spec.values():
+        for p in MULTI_RANK_PARAMS:
+            node.get("params", {}).pop(p, None)
+    if unported:
+        spec["fcn_object_detector"]["params"]["pretrained_weights"] = \
+            _biased_snapshot(tmp_path / "snap")
+    graph = launch(spec)
+    assert sorted(graph.nodes) == sorted(spec)
+    for param in unported:
+        topic = spec["fcn_object_detector"]["params"][param]
+        node = graph.nodes["fcn_object_detector"]
+        assert node.overlay_topic == topic
+        rects, overlays = [], []
+        graph.bus.subscribe(RECTS, rects.append, queue_size=8)
+        graph.bus.subscribe(topic, overlays.append, queue_size=8)
+        frame = np.random.default_rng(1).integers(
+            0, 256, (448, 448, 3)).astype(np.uint8)
+        graph.bus.publish("image", frame, stamp=2.5)
+        graph.spin()
+        graph.close()
+        graph.spin()
+        assert [m.stamp for m in overlays] == [m.stamp for m in rects] == [2.5]
+        dets = rects_as_detections(rects[0].data)
+        assert dets
+        assert np.array_equal(overlays[0].data,
+                              draw_detections(frame, dets, node.names))
+
+
+def test_multichip_example_on_four_ranks(tmp_path):
+    from torchfcn.parallel.distributed import run_ranks
+    from test_torch_mesh_ranks import rank_launch
+    spec = _on_cpu(_example("fcn_object_detector_multichip.launch.json"))
+    params = spec["fcn_object_detector"]["params"]
+    overlay = params["overlay_topic"]
+    assert overlay and params["mesh"] == {"data": 4, "space": 2}
+    params["mesh"] = {"data": 2, "space": 2}
+    params["pretrained_weights"] = _biased_snapshot(tmp_path / "snap")
     rng = np.random.default_rng(0)
     frames = [rng.integers(0, 256, (448, 448, 3)).astype(np.uint8)
               for _ in range(8)]
-    got = run_ranks(rank_launch, 4, spec, frames, RECTS, threads=1)
+    got = run_ranks(rank_launch, 4, spec, frames, RECTS, overlay,
+                    threads=1)
     assert got[1:] == [8, 8, 8]       # the followers ran rank 0's batch
     one = copy.deepcopy(spec)
     one["fcn_object_detector"]["params"].pop("mesh")
     graph = launch(one)
-    want = []
+    want, want_overlays = [], {}
     graph.bus.subscribe(RECTS, lambda m: want.append(
         (m.stamp, m.data.points, m.data.labels)), queue_size=64)
+    graph.bus.subscribe(overlay, lambda m: want_overlays.update(
+        {m.stamp: m.data}), queue_size=64)
     for i, f in enumerate(frames):
         graph.bus.publish("image", f, stamp=float(i))
         graph.spin()
     graph.close()
     graph.spin()
     assert len(want) == 8 and sum(len(w[2]) for w in want) > 0
-    assert sorted(got[0]) == sorted(want)
+    rects, overlays = got[0]
+    assert sorted(rects) == sorted(want)
+    assert sorted(s for s, _ in overlays) == sorted(want_overlays)
+    assert all(np.array_equal(img, want_overlays[s]) for s, img in overlays)
+    drawn = [s for s, img in overlays if not np.array_equal(
+        img, frames[int(s)])]
+    assert drawn                      # boxes were drawn on some frames
 
 
 def _tool_scene(rng, ox, oy):

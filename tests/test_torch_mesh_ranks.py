@@ -230,23 +230,28 @@ def rank_detector(name, state, kwargs, config, frames, data, space, dtype):
     return tuple(det(frames))
 
 
-def rank_launch(spec, frames, rects_topic):
+def rank_launch(spec, frames, rects_topic, overlay_topic=None):
     """The launch graph of ``spec`` on every rank: rank 0 publishes
     ``frames`` and closes the graph, the other ranks follow.  Rank 0's
-    published rects, or the frames a follower ran."""
+    published rects (and, with ``overlay_topic``, its overlays as
+    (stamp, image)), or the frames a follower ran."""
     from torchfcn.serve.launch import launch
     graph = launch(spec)
     node = next(iter(graph.nodes.values()))
     if node.following:
         return node.follow()
-    got = []
+    got, overlays = [], []
     graph.bus.subscribe(rects_topic, lambda m: got.append(m), queue_size=64)
+    if overlay_topic:
+        graph.bus.subscribe(overlay_topic, lambda m: overlays.append(
+            (m.stamp, m.data)), queue_size=64)
     for i, f in enumerate(frames):
         graph.bus.publish("image", f, stamp=float(i))
         graph.spin()
     graph.close()
     graph.spin()
-    return [(m.stamp, m.data.points, m.data.labels) for m in got]
+    rects = [(m.stamp, m.data.points, m.data.labels) for m in got]
+    return (rects, overlays) if overlay_topic else rects
 
 
 # --- the harness ---

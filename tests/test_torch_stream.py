@@ -10,7 +10,8 @@ tpufcn's (``tpufcn/serve/stream.py``) on the same frames and weights.
   frame and micro-batched replays, and ``replay_throughput``'s count.
 * The node's micro-batching semantics with the same stub detector on
   both packages' nodes (the cases of ``tests/test_bus_stream.py``): the
-  stub's call shapes, the published stamps and ``processed`` equal.
+  stub's call shapes, the published stamps and ``processed`` equal; the
+  overlay topic's images equal tpufcn's node's under the same stamps.
 * ``TiledSegmenter`` (fcn32s_seg, 224x224 tiles, float32): the pmap equal
   to tpufcn's (which resizes and finds contours with cv2) but at a share
   of values off by one, bounded by ``PMAP_OFF_BY_ONE``: the score maps
@@ -259,8 +260,38 @@ def test_node_defaults_and_unported_params():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             tstream.DetectorNode(bus)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tstream.DetectorNode(bus, detector=_Stub(), overlay_topic="/o")
+    # the overlay topic: tpufcn's node's images under the same stamps, from
+    # a detector whose boxes cross the frame's edges, with names and without
+    frames = _frames(3, hw=(60, 80))
+    dets = [([-5, 10, 40, 70], 2, 0.8), ([30, -8, 95, 30], 0, 1.5),
+            ([50, 20, 50, 44], 1, 0.25)]
+
+    class Boxes:
+        def __call__(self, batch):
+            return self
+
+        def to_lists(self):
+            return [dets]
+
+    overlays = {}
+    for key, pkg_bus, pkg_stream in (("port", tbus, tstream),
+                                     ("jax", jbus, jstream)):
+        b = pkg_bus.TopicBus()
+        node = pkg_stream.DetectorNode(b, detector=Boxes(),
+                                       overlay_topic="/o",
+                                       names=["ball", "crate"])
+        got = overlays[key] = []
+        b.subscribe("/o", lambda m, got=got: got.append((m.stamp, m.data)),
+                    queue_size=8)
+        for i, f in enumerate(frames):
+            b.publish("image", f, stamp=0.5 * i)
+            b.spin_once()
+        b.spin_once()
+        assert node.overlay_topic == "/o"
+    assert [s for s, _ in overlays["port"]] == [0.0, 0.5, 1.0]
+    assert [s for s, _ in overlays["port"]] == [s for s, _ in overlays["jax"]]
+    for (_, a), (_, b), f in zip(overlays["port"], overlays["jax"], frames):
+        assert np.array_equal(a, b) and not np.array_equal(a, f)
 
 
 def test_detection_window_rois():

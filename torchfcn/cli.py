@@ -31,8 +31,9 @@ default) or on the CPU (``--device cpu``); ``records``, ``voc`` and
 ``refine`` and ``rank`` (their CNN codes run on ``--device``).  ``replay``
 and ``launch`` read camera recordings (``--video``: MJPG AVIs, with
 ``--video-stride`` and ``--max-frames``); ``train --manifest --workers N``
-composes in N host processes.  Not ported yet (ROADMAP Queue 1):
-``--overlay-dir``, ``--inspect-data`` and the other subcommands.
+composes in N host processes.  ``detect --overlay-dir`` and ``train
+--inspect-data`` draw tpufcn's detection overlay on the host
+(``torchfcn.serve.viz``).
 
     python -m torchfcn.cli detect frame.png --model googlenet_detectnet
     python -m torchfcn.cli launch examples/fcn_point_map.launch.json \
@@ -70,10 +71,6 @@ def _log(msg: str) -> None:
     print(msg, file=sys.stderr, flush=True)
 
 
-INSPECT_MISSING = ("--inspect-data draws rect overlays, which are not "
-                   "ported yet: ROADMAP Queue 1, viz.py and the overlay")
-
-
 def _cmd_train(args):
     """Train a recipe (``tpufcn/cli.py::_cmd_train``) from record shards or
     from scenes composed on the host (in this process, or in ``--workers``
@@ -87,8 +84,6 @@ def _cmd_train(args):
     from torchfcn.data.raster import resize_linear_u8
     from torchfcn.models import get_spec
 
-    if args.inspect_data:
-        raise NotImplementedError(INSPECT_MISSING)
     if not args.records and not args.manifest:
         raise SystemExit("one of --manifest or --records is required")
 
@@ -158,7 +153,40 @@ def _cmd_train(args):
             pipe = CompositeTrainPipeline(samples, cfg.grid, cfg.data,
                                           backgrounds=args.backgrounds)
     with pool:      # the worker pool stops when training ends, or fails
-        _fit(args, cfg, pipe, heads, with_seg)
+        if args.inspect_data:
+            _inspect_data(args.inspect_data, pipe)
+        else:
+            _fit(args, cfg, pipe, heads, with_seg)
+
+
+def _inspect_data(out_dir: str, pipe) -> None:
+    """The data dry-run (``tpufcn/cli.py:110-137``): the first batch as
+    overlay PNGs (``b0_XX.png``, each valid box drawn with confidence 1)
+    and its seg masks scaled to 0-255 (``b0_XX_seg.png``), then one JSON
+    line."""
+    import os
+    import numpy as np
+    import torch
+    from torchfcn.data.imageio import imwrite
+    from torchfcn.serve.viz import draw_detections
+
+    os.makedirs(out_dir, exist_ok=True)
+    batch = {k: v.cpu().numpy() if isinstance(v, torch.Tensor)
+             else np.asarray(v) for k, v in next(iter(pipe)).items()}
+    imgs, seg = batch["image"], batch.get("seg")
+    for i in range(imgs.shape[0]):
+        dets = [([r[0], r[1], r[0] + r[2], r[1] + r[3]], int(l), 1.0)
+                for r, l, v in zip(batch["rects"][i], batch["labels"][i],
+                                   batch["valid"][i]) if v]
+        imwrite(os.path.join(out_dir, f"b0_{i:02d}.png"),
+                draw_detections(imgs[i], dets))
+        if seg is not None:
+            hi = max(int(seg[i].max()), 1)
+            imwrite(os.path.join(out_dir, f"b0_{i:02d}_seg.png"),
+                    (seg[i].astype(np.float32) * (255.0 / hi))
+                    .astype(np.uint8))
+    print(json.dumps({"inspect_data": out_dir, "images": int(imgs.shape[0]),
+                      "with_seg": seg is not None}))
 
 
 def _fit(args, cfg, pipe, heads, with_seg):
@@ -404,15 +432,29 @@ def _detector_node(args, **params):
 
 
 def _cmd_detect(args):
-    if args.overlay_dir:
-        from torchfcn.serve.stream import OVERLAY_MISSING
-        raise NotImplementedError(OVERLAY_MISSING)
+    """The detector over image files, one JSON line each; with
+    ``--overlay-dir`` also each frame's overlay as ``<stem>_det.png``
+    (``_1``, ``_2`` ... after the stem where inputs share a basename)."""
+    import os
     node = _detector_node(args, detection_threshold=args.threshold,
                           min_boxes=args.min_boxes, nms_eps=args.nms_eps,
                           manifest=args.manifest)
     names = node.names or []
+    overlay_names: set = set()
     for path, img in _read_frames(args.images):
         dets = node.detector(img[None]).to_lists()[0]
+        if args.overlay_dir:
+            from torchfcn.data.imageio import imwrite
+            from torchfcn.serve.viz import draw_detections
+            os.makedirs(args.overlay_dir, exist_ok=True)
+            stem = os.path.splitext(os.path.basename(path))[0]
+            n, base = 1, stem
+            while stem in overlay_names:
+                stem = f"{base}_{n}"
+                n += 1
+            overlay_names.add(stem)
+            imwrite(os.path.join(args.overlay_dir, stem + "_det.png"),
+                    draw_detections(img, dets, names or None))
         print(json.dumps({"image": path, "detections": [
             {"box": [int(v) for v in box], "label": label,
              "name": (names[label] if label < len(names)
@@ -738,7 +780,8 @@ def main(argv=None):
                    help="label manifest ('idx name' / 'idx _ name' lines) "
                         "naming classes in the output")
     d.add_argument("--overlay-dir", default=None,
-                   help="the detection overlay per input (not ported yet)")
+                   help="write each input's detection overlay here as "
+                        "<stem>_det.png")
     d.add_argument("--device", default="cuda")
     d.set_defaults(fn=_cmd_detect)
 
@@ -857,7 +900,8 @@ def main(argv=None):
     t.add_argument("--warmup", type=int, default=0, metavar="N",
                    help="linear lr warmup over the first N steps")
     t.add_argument("--inspect-data", default=None, metavar="DIR",
-                   help="data dry-run as overlay PNGs (not ported: raises)")
+                   help="data dry-run: the first batch as overlay PNGs "
+                        "(+ seg masks) in DIR, then exit")
     t.add_argument("--device-data", action="store_true",
                    help="compose scenes on the device instead of the "
                         "host")

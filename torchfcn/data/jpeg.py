@@ -13,6 +13,10 @@ JDCT_ISLOW integer inverse DCT, "fancy" (triangular) upsampling of h2v1,
 h1v2 and h2v2 chroma, fixed-point YCbCr -> RGB tables, and BGR output (a
 gray file replicated to three channels).
 
+``decode_ffmpeg`` decodes a Motion-JPEG frame as ``cv.VideoCapture`` does
+through FFmpeg instead: the same coefficients, FFmpeg's ``simple_idct``,
+chroma replicated and swscale's YUV -> BGR (``torchfcn.serve.video``).
+
 Encoding writes what OpenCV writes by default: SOI, a JFIF APP0, one DQT per
 table at the quality's scaling of the Annex K tables, SOF0 (4:2:0; one
 component for a gray image), the four standard Huffman tables (no
@@ -82,6 +86,11 @@ CONST_BITS, PASS1_BITS = 13, 2
 F_0_298, F_0_390, F_0_541, F_0_765 = 2446, 3196, 4433, 6270
 F_0_899, F_1_175, F_1_501, F_1_847 = 7373, 9633, 12299, 15137
 F_1_961, F_2_053, F_2_562, F_3_072 = 16069, 16819, 20995, 25172
+# FFmpeg's simple_idct constants W1..W7: cos(i pi / 16) sqrt(2) 2^14
+SIMPLE_W = (22725, 21407, 19266, 16383, 12873, 8867, 4520)
+# swscale's 16-bit YUV -> RGB coefficients of BT.601 full range (its x86
+# yuv2rgb: each term (8 * (c - 128) * k) >> 16, as pmulhw computes it)
+SWS_UB, SWS_UG, SWS_VG, SWS_VR = 14516, -2819, -5850, 11485
 
 # the colour transforms' 16-bit fixed point
 SCALEBITS = 16
@@ -155,6 +164,51 @@ def idct_islow(coefs: np.ndarray, quant: np.ndarray) -> np.ndarray:
                     CONST_BITS + PASS1_BITS + 3)
     out = np.stack(rows, axis=2)                     # (N, row, col)
     return np.clip(out + 128, 0, 255).astype(np.uint8)
+
+
+def _int16(x: np.ndarray) -> np.ndarray:
+    """``x`` stored to int16 (wrapping), kept as int64."""
+    return ((x + 32768) & 0xFFFF) - 32768
+
+
+def _simple_1d(x: List[np.ndarray], a0: np.ndarray) -> List[np.ndarray]:
+    """The butterfly of FFmpeg's simple_idct over 8 inputs (arrays over
+    blocks), ``a0`` the DC term with its rounding: the 8 unshifted sums."""
+    w1, w2, w3, w4, w5, w6, w7 = SIMPLE_W
+    a1, a2, a3 = a0, a0, a0
+    a0, a1 = a0 + w2 * x[2] + w4 * x[4] + w6 * x[6], \
+        a1 + w6 * x[2] - w4 * x[4] - w2 * x[6]
+    a2, a3 = a2 - w6 * x[2] - w4 * x[4] + w2 * x[6], \
+        a3 - w2 * x[2] + w4 * x[4] - w6 * x[6]
+    b0 = w1 * x[1] + w3 * x[3] + w5 * x[5] + w7 * x[7]
+    b1 = w3 * x[1] - w7 * x[3] - w1 * x[5] - w5 * x[7]
+    b2 = w5 * x[1] - w1 * x[3] + w7 * x[5] + w3 * x[7]
+    b3 = w7 * x[1] - w5 * x[3] + w3 * x[5] - w1 * x[7]
+    return [a0 + b0, a1 + b1, a2 + b2, a3 + b3,
+            a3 - b3, a2 - b2, a1 - b1, a0 - b0]
+
+
+def idct_simple(coefs: np.ndarray, quant: np.ndarray) -> np.ndarray:
+    """(N, 64) quantised coefficients in natural order and a (64,) table ->
+    (N, 8, 8) uint8 samples, as FFmpeg's MJPEG decoder computes them: the
+    dequantised DC offset by 1024 (its DC predictor starts at ``4 << 8``,
+    so the level shift rides in the DC), stored to int16, then
+    ``simple_idct_put``: rows (shift 11, and a row of DC only becomes
+    ``8 * DC``), columns (shift 20, the rounding folded into the DC as
+    ``W4 * (c0 + 32)``), clamped."""
+    c = coefs.astype(np.int64).reshape(-1, 64) * quant
+    c[:, 0] += 1024
+    c = _int16(c).reshape(-1, 8, 8)
+    row = [c[:, :, k] for k in range(8)]                # (N, row) each
+    sums = _simple_1d(row, SIMPLE_W[3] * row[0] + (1 << 10))
+    rows = np.stack([_int16(s >> 11) for s in sums], axis=2)
+    dc_only = ~c[:, :, 1:].any(axis=2)
+    rows = np.where(dc_only[:, :, None], _int16(row[0] * 8)[:, :, None],
+                    rows)                                # (N, row, col)
+    col = [rows[:, r, :] for r in range(8)]
+    sums = _simple_1d(col, SIMPLE_W[3] * (col[0] + (1 << 19) // SIMPLE_W[3]))
+    out = np.stack([s >> 20 for s in sums], axis=1)     # (N, row, col)
+    return np.clip(out, 0, 255).astype(np.uint8)
 
 
 def _fdct_1d(d: List[np.ndarray], even_shift: Optional[int], odd_shift: int
@@ -247,6 +301,29 @@ def ycc_to_bgr(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
              >> SCALEBITS)
     b = y + ((_fix(1.77200) * cb + ONE_HALF) >> SCALEBITS)
     return np.clip(np.stack([b, g, r], axis=-1), 0, 255).astype(np.uint8)
+
+
+def ycc_to_bgr_swscale(y: np.ndarray, cb: np.ndarray, cr: np.ndarray,
+                       full_chroma: bool = False) -> np.ndarray:
+    """swscale's full-range YUV -> BGR24 of uint8 planes of one size ->
+    (H, W, 3), saturated.  Its unscaled converter (subsampled chroma):
+    each chroma term the high half of a 16-bit product, truncated, G the
+    sum of two such terms.  With ``full_chroma`` (chroma not subsampled,
+    its output stage ``yuv2rgb_write_full``): the same coefficients in one
+    sum over 22 fractional bits, rounded."""
+    y = y.astype(np.int64)
+    u = (cb.astype(np.int64) - 128) * 8
+    v = (cr.astype(np.int64) - 128) * 8
+    if full_chroma:
+        y = (y << 22) + (1 << 21)
+        bgr = [(y + (u * SWS_UB << 6)) >> 22,
+               (y + (u * SWS_UG + v * SWS_VG << 6)) >> 22,
+               (y + (v * SWS_VR << 6)) >> 22]
+    else:
+        bgr = [y + ((u * SWS_UB) >> 16),
+               y + ((u * SWS_UG) >> 16) + ((v * SWS_VG) >> 16),
+               y + ((v * SWS_VR) >> 16)]
+    return np.clip(np.stack(bgr, axis=-1), 0, 255).astype(np.uint8)
 
 
 def bgr_to_ycc(img: np.ndarray) -> Tuple[np.ndarray, ...]:
@@ -357,6 +434,42 @@ def decode(data: bytes, name: str = "<buffer>") -> np.ndarray:
     """(H, W, 3) uint8 BGR pixels of a baseline JPEG, as ``cv.imdecode(buf,
     cv.IMREAD_COLOR)`` gives them.  ``name`` names the file in errors."""
     return _to_bgr(*parse(data, name))
+
+
+def ffmpeg_planes(data: bytes, name: str = "<buffer>"
+                  ) -> Tuple[List[np.ndarray], Tuple[int, int]]:
+    """The (H, W) uint8 planes of a Motion-JPEG frame as FFmpeg's MJPEG
+    decoder gives them (``idct_simple``), each chroma plane replicated over
+    its sampling factors: ([Y] of a gray frame, else [Y, Cb, Cr]; the
+    chroma's (horizontal, vertical) subsampling, (1, 1) for gray)."""
+    comps, coefs, (h, w), _, _ = parse(data, name)
+    hmax = max(c.h for c in comps)
+    vmax = max(c.v for c in comps)
+    planes = []
+    for c in comps:
+        if c.quant is None:               # never scanned: zeros, as libjpeg
+            c.quant = np.zeros(64, np.int64)
+        blk = coefs[c.offset:c.offset + c.bw * c.bh]
+        plane = _unblocks(idct_simple(blk, c.quant), c.bh, c.bw)
+        plane = np.repeat(np.repeat(plane, vmax // c.v, axis=0),
+                          hmax // c.h, axis=1)
+        planes.append(plane[:h, :w])
+    return planes, (hmax // comps[-1].h, vmax // comps[-1].v)
+
+
+def decode_ffmpeg(data: bytes, name: str = "<buffer>") -> np.ndarray:
+    """(H, W, 3) uint8 BGR pixels of a Motion-JPEG frame as
+    ``cv.VideoCapture(path)`` gives them through FFmpeg: its MJPEG decoder
+    (``ffmpeg_planes``), then swscale to BGR24 (``ycc_to_bgr_swscale``),
+    whose unscaled converter takes 4:2:0 and 4:2:2 frames of even height
+    and whose full-chroma output stage takes 4:4:4 ones; a gray frame
+    replicated to three channels.  Other frames (odd heights, 4:4:0) go
+    through swscale's bicubic chroma scaler, which is not copied: their
+    chroma is replicated as for the unscaled converter."""
+    planes, sub = ffmpeg_planes(data, name)
+    if len(planes) == 1:
+        return np.repeat(planes[0][..., None], 3, axis=2)
+    return ycc_to_bgr_swscale(*planes, full_chroma=sub == (1, 1))
 
 
 def parse(data: bytes, name: str = "<buffer>"):

@@ -1,6 +1,6 @@
-"""The few OpenCV rasterizers that the hard benchmark draws with, in numpy
-on uint8 arrays, so that the port renders its sources without ``cv2``
-(the card's host has none).
+"""The OpenCV rasterizers and filters that the port draws with, in numpy on
+uint8 arrays, so that it renders without ``cv2`` (the card's host has
+none).
 
 Each follows OpenCV's 8-bit code path, fixed-point rules included:
 
@@ -50,9 +50,18 @@ And two that the tiled segmenter of the stream surface uses
 * ``largest_contour_rect``: the bounding box of the largest contour of a
   mask (``cv.findContours`` + ``cv.contourArea`` + ``cv.boundingRect``).
 
+And those of the detection overlay (``torchfcn.serve.viz``), as cv2 5.0
+draws with ``LINE_8``, bit-equal: ``line`` (with ``clip_line``),
+``fill_convex_poly`` (its outline ``line`` or, with 16 fractional bits,
+``line_fixed``), ``fill_circle``, ``thick_line``, ``rectangle`` (filled
+or outlined), ``put_text`` (``FONT_HERSHEY_PLAIN``
+from ``torchfcn.data.hershey``), ``add_weighted_u8`` and
+``apply_colormap_jet``.
+
 ``tests/test_torch_hardbench.py`` holds the first six against ``cv2`` over
 the sizes the benchmark draws, ``tests/test_torch_stream.py`` the two
-after them, ``tests/test_torch_records.py`` the last two.
+after them, ``tests/test_torch_records.py`` the last two,
+``tests/test_torch_viz.py`` the overlay's.
 """
 
 from __future__ import annotations
@@ -389,7 +398,10 @@ def _fill_convex_fixed(m: np.ndarray, v: Sequence[Tuple[int, int]],
                        color: int) -> None:
     """``FillConvexPoly`` of 16-bit fixed-point vertices: the outline, then
     per row the span between the two edges walked down from the topmost
-    vertex, their x stepped by rounded fixed-point slopes."""
+    vertex, their x stepped by rounded fixed-point slopes.  The hard
+    benchmark's ellipses keep this walk, not the exact
+    ``fill_convex_poly``: the gates' recorded readings rest on the sources
+    it draws (ROADMAP Queue 3 item 2)."""
     n = len(v)
     half = XY_ONE >> 1
     p0 = v[-1]
@@ -886,3 +898,333 @@ def warp_affine_u8(img: np.ndarray, m: np.ndarray, size_wh: Tuple[int, int],
     bottom = fma_f32(ax, p11 - p10, p10)
     out = fma_f32(ay, bottom - top, top)
     return np.clip(np.rint(out), 0, 255).astype(np.uint8)
+
+
+# --- the overlay's drawing (imgproc/drawing.cpp, LINE_8) -----------------
+#
+# What ``torchfcn.serve.viz`` draws with: OpenCV's 8-connected rasterizers
+# on uint8 images of 1 or 3 channels, ``color`` a scalar or a tuple of one
+# value per channel.  Points are integers; ``shift`` gives their fractional
+# bits, as in cv2.  Every function draws in place.
+
+def clip_line(size_wh: Tuple[int, int], p1: Tuple[int, int],
+              p2: Tuple[int, int]):
+    """``cv::clipLine`` of a segment to [0, w - 1] x [0, h - 1] (int64
+    ends, double intersections truncated): (inside, p1, p2)."""
+    right, bottom = size_wh[0] - 1, size_wh[1] - 1
+    if size_wh[0] <= 0 or size_wh[1] <= 0:
+        return False, p1, p2
+    (x1, y1), (x2, y2) = p1, p2
+    c1 = (x1 < 0) + (x1 > right) * 2 + (y1 < 0) * 4 + (y1 > bottom) * 8
+    c2 = (x2 < 0) + (x2 > right) * 2 + (y2 < 0) * 4 + (y2 > bottom) * 8
+    if (c1 & c2) == 0 and (c1 | c2) != 0:
+        if c1 & 12:
+            a = 0 if c1 < 8 else bottom
+            x1 += int(float(a - y1) * float(x2 - x1) / float(y2 - y1))
+            y1 = a
+            c1 = (x1 < 0) + (x1 > right) * 2
+        if c2 & 12:
+            a = 0 if c2 < 8 else bottom
+            x2 += int(float(a - y2) * float(x2 - x1) / float(y2 - y1))
+            y2 = a
+            c2 = (x2 < 0) + (x2 > right) * 2
+        if (c1 & c2) == 0 and (c1 | c2) != 0:
+            if c1:
+                a = 0 if c1 == 1 else right
+                y1 += int(float(a - x1) * float(y2 - y1) / float(x2 - x1))
+                x1 = a
+                c1 = 0
+            if c2:
+                a = 0 if c2 == 1 else right
+                y2 += int(float(a - x2) * float(y2 - y1) / float(x2 - x1))
+                x2 = a
+                c2 = 0
+    return (c1 | c2) == 0, (x1, y1), (x2, y2)
+
+
+def line(img: np.ndarray, p1: Tuple[int, int], p2: Tuple[int, int],
+         color) -> None:
+    """``cv.line(img, p1, p2, color)`` (thickness 1, LINE_8, no shift):
+    the segment clipped to the image (``clip_line``) when an end lies
+    outside, then ``LineIterator``'s walk from its left end."""
+    h, w = img.shape[:2]
+    if not (0 <= p1[0] < w and 0 <= p2[0] < w and 0 <= p1[1] < h
+            and 0 <= p2[1] < h):
+        inside, p1, p2 = clip_line((w, h), p1, p2)
+        if not inside:
+            return
+    (x, y), dx, dy = p1, p2[0] - p1[0], p2[1] - p1[1]
+    if dx < 0:
+        (x, y), dx, dy = p2, -dx, -dy
+    sy = -1 if dy < 0 else 1
+    dy = abs(dy)
+    steep = dy > dx
+    if steep:
+        dx, dy = dy, dx
+    n = dx + 1
+    k = np.arange(n, dtype=np.int64)
+    # the minor axis steps after each pixel whose error term is negative
+    minor = np.zeros(n, np.int64)
+    err, m = dx - 2 * dy, 0
+    if dy:
+        for i in range(1, n):
+            if err < 0:
+                m += 1
+                err += 2 * dx
+            err -= 2 * dy
+            minor[i] = m
+    if steep:
+        xs, ys = x + minor, y + sy * k
+    else:
+        xs, ys = x + k, y + sy * minor
+    img[ys, xs] = color
+
+
+def line_fixed(img: np.ndarray, p1: Tuple[int, int], p2: Tuple[int, int],
+               color) -> None:
+    """OpenCV's ``Line2``: the 8-connected segment between points of 16
+    fractional bits, clipped to the image in that fixed point, walked
+    along its major axis from its lower end (rounded on the minor axis
+    by a truncated fixed-point slope), its upper end drawn rounded."""
+    h, w = img.shape[:2]
+    inside, (x1, y1), (x2, y2) = clip_line((w << XY_SHIFT, h << XY_SHIFT),
+                                           p1, p2)
+    if not inside:
+        return
+    dx, dy = x2 - x1, y2 - y1
+    half = XY_ONE >> 1
+    if abs(dx) > abs(dy):
+        if dx < 0:
+            x1, y1, x2, y2, dx, dy = x2, y2, x1, y1, -dx, -dy
+        step = _tdiv(dy << XY_SHIFT, dx | 1)
+        n = ((x2 - x1) >> XY_SHIFT) + 1
+        k = np.arange(max(n, 0), dtype=np.int64)
+        xs = ((x1 + half) >> XY_SHIFT) + k
+        ys = (y1 + half + step * k) >> XY_SHIFT
+    else:
+        if dy < 0:
+            x1, y1, x2, y2, dx, dy = x2, y2, x1, y1, -dx, -dy
+        step = _tdiv(dx << XY_SHIFT, abs(dy) | 1)
+        n = ((y2 - y1) >> XY_SHIFT) + 1
+        k = np.arange(max(n, 0), dtype=np.int64)
+        ys = ((y1 + half) >> XY_SHIFT) + k
+        xs = (x1 + half + step * k) >> XY_SHIFT
+    xs = np.append(xs, (x2 + half) >> XY_SHIFT)
+    ys = np.append(ys, (y2 + half) >> XY_SHIFT)
+    keep = (xs >= 0) & (xs < w) & (ys >= 0) & (ys < h)
+    img[ys[keep], xs[keep]] = color
+
+
+def fill_convex_poly(img: np.ndarray, pts: Sequence[Tuple[int, int]],
+                     color, shift: int = 0) -> None:
+    """``cv.fillConvexPoly(img, pts, color, cv.LINE_8, shift)``: the
+    outline (``line`` of the truncated ends without a shift, else
+    ``line_fixed``), then each row's span between the two edges walked
+    down from the topmost vertex, their x stepped by rounded fixed-point
+    slopes."""
+    n = len(pts)
+    if n == 0:
+        return
+    h, w = img.shape[:2]
+    up = XY_SHIFT - shift
+    delta = (1 << shift) >> 1
+    half = XY_ONE >> 1
+    p0 = (pts[-1][0] << up, pts[-1][1] << up)
+    for x, y in pts:
+        p = (x << up, y << up)
+        if shift == 0:
+            line(img, (p0[0] >> XY_SHIFT, p0[1] >> XY_SHIFT),
+                 (p[0] >> XY_SHIFT, p[1] >> XY_SHIFT), color)
+        else:
+            line_fixed(img, p0, p, color)
+        p0 = p
+    ys = [p[1] for p in pts]
+    imin = ys.index(min(ys))
+    xmin = (min(p[0] for p in pts) + delta) >> shift
+    xmax = (max(p[0] for p in pts) + delta) >> shift
+    ymin = (min(ys) + delta) >> shift
+    ymax = (max(ys) + delta) >> shift
+    if n < 3 or xmax < 0 or ymax < 0 or xmin >= w or ymin >= h:
+        return
+    ymax = min(ymax, h - 1)
+    edges = [[imin, 1, -XY_ONE, 0, ymin], [imin, n - 1, -XY_ONE, 0, ymin]]
+    left = n                 # the C code's ``edges`` countdown
+    y = ymin
+    while True:
+        for e in edges:
+            if y >= e[4]:
+                idx0, di = e[0], e[1]
+                idx = (idx0 + di) % n
+                while True:
+                    left -= 1
+                    if left < 0:
+                        break
+                    ty = (pts[idx][1] + delta) >> shift
+                    if ty > y:
+                        xs, xe = pts[idx0][0] << up, pts[idx][0] << up
+                        e[:] = [idx, di, xs,
+                                _tdiv((xe - xs) * 2 + (ty - y),
+                                      2 * (ty - y)), ty]
+                        break
+                    idx0 = idx
+                    idx = (idx + di) % n
+        if left < 0:
+            break
+        if y >= 0:
+            lo, hi = sorted((edges[0][2], edges[1][2]))
+            x1, x2 = (lo + half) >> XY_SHIFT, (hi + half) >> XY_SHIFT
+            if x2 >= 0 and x1 < w:
+                img[y, max(x1, 0):min(x2, w - 1) + 1] = color
+        edges[0][2] += edges[0][3]
+        edges[1][2] += edges[1][3]
+        y += 1
+        if y > ymax:
+            break
+
+
+def fill_circle(img: np.ndarray, center: Tuple[int, int], radius: int,
+                color) -> None:
+    """``cv.circle(img, center, radius, color, -1)`` (LINE_8, no shift):
+    OpenCV's ``Circle`` of integer midpoint steps, each step filling the
+    four rows it reaches, clipped to the image."""
+    h, w = img.shape[:2]
+    cx, cy = center
+    err, dx, dy, plus, minus = 0, radius, 0, 1, (radius << 1) - 1
+    while dx >= dy:
+        for row, half_w in ((cy - dy, dx), (cy + dy, dx), (cy - dx, dy),
+                            (cy + dx, dy)):
+            x1, x2 = max(cx - half_w, 0), min(cx + half_w, w - 1)
+            if 0 <= row < h and x1 <= x2:
+                img[row, x1:x2 + 1] = color
+        dy += 1
+        err += plus
+        plus += 2
+        if err > 0:
+            err -= minus
+            dx -= 1
+            minus -= 2
+
+
+def thick_line(img: np.ndarray, p0: Tuple[int, int], p1: Tuple[int, int],
+               color, thickness: int, caps: int = 3) -> None:
+    """OpenCV 5's ``ThickLine`` of integer ends (LINE_8, no shift): at
+    thickness 1 ``line``; else the ends first clipped to the image grown
+    by ``thickness`` on each side, then the quad of half-width
+    ``thickness / 2`` about the segment (``fill_convex_poly`` at 16
+    fractional bits) and round caps (``fill_circle``) at the ends that
+    ``caps`` names (bit 0: ``p0``, bit 1: ``p1``)."""
+    if thickness <= 1:
+        line(img, p0, p1, color)
+        return
+    h, w = img.shape[:2]
+    m = thickness
+    inside, p0, p1 = clip_line((w + 2 * m, h + 2 * m), (p0[0] + m, p0[1] + m),
+                               (p1[0] + m, p1[1] + m))
+    if not inside:
+        return
+    p0 = ((p0[0] - m) << XY_SHIFT, (p0[1] - m) << XY_SHIFT)
+    p1 = ((p1[0] - m) << XY_SHIFT, (p1[1] - m) << XY_SHIFT)
+    half = XY_ONE >> 1
+    dx = (p0[0] - p1[0]) / XY_ONE
+    dy = (p1[1] - p0[1]) / XY_ONE
+    r = dx * dx + dy * dy
+    odd = thickness & 1
+    thickness <<= XY_SHIFT - 1
+    if abs(r) > np.finfo(np.float64).eps:
+        r = (thickness + odd * XY_ONE * 0.5) / math.sqrt(r)
+        ex, ey = int(np.rint(dy * r)), int(np.rint(dx * r))
+        fill_convex_poly(img, [(p0[0] + ex, p0[1] + ey),
+                               (p0[0] - ex, p0[1] - ey),
+                               (p1[0] - ex, p1[1] - ey),
+                               (p1[0] + ex, p1[1] + ey)], color, XY_SHIFT)
+    radius = (thickness + half) >> XY_SHIFT
+    for bit, p in ((1, p0), (2, p1)):
+        if caps & bit:
+            fill_circle(img, ((p[0] + half) >> XY_SHIFT,
+                              (p[1] + half) >> XY_SHIFT), radius, color)
+
+
+def rectangle(img: np.ndarray, pt1: Tuple[int, int], pt2: Tuple[int, int],
+              color, thickness: int = 1) -> None:
+    """``cv.rectangle(img, pt1, pt2, color, thickness)`` (LINE_8, no
+    shift): OpenCV's closed ``PolyLine`` of the four corners (``thick_line``
+    from the last corner round, each segment capped at its end), or for a
+    negative thickness the filled convex polygon."""
+    (x1, y1), (x2, y2) = pt1, pt2
+    corners = [(x1, y1), (x2, y1), (x2, y2), (x1, y2)]
+    if thickness < 0:
+        fill_convex_poly(img, corners, color)
+        return
+    p0 = corners[-1]
+    for p in corners:
+        thick_line(img, p0, p, color, thickness, caps=2)
+        p0 = p
+
+
+def put_text(img: np.ndarray, text: str, org: Tuple[int, int],
+             font_scale: float, color, thickness: int = 1) -> None:
+    """``cv.putText(img, text, org, cv.FONT_HERSHEY_PLAIN, font_scale,
+    color, thickness, cv.LINE_8)`` as cv2 5.0 draws it: each character's
+    coverage mask (``torchfcn.data.hershey``, recorded at the sizes it
+    lists) blended into the image in turn, ``round((pixel * (255 - a) +
+    color * a) / 255)`` per channel, the pen moving on by the character's
+    advance.  Control characters draw as '?', as in cv2; so do characters
+    beyond ASCII, which cv2 draws from its Unicode font (ROADMAP Queue 3
+    item 9)."""
+    from torchfcn.data import hershey
+    table = hershey.glyphs(font_scale, thickness)
+    h, w = img.shape[:2]
+    col = np.asarray(color, np.int64)
+    x, y = org
+    for ch in text:
+        code = ord(ch) if 32 <= ord(ch) < 127 else ord("?")
+        adv, x0, y0, mask = table[code - 32]
+        gx, gy = x + x0, y + y0
+        r0, r1 = max(gy, 0), min(gy + mask.shape[0], h)
+        c0, c1 = max(gx, 0), min(gx + mask.shape[1], w)
+        if r0 < r1 and c0 < c1:
+            a = mask[r0 - gy:r1 - gy, c0 - gx:c1 - gx].astype(np.int64)
+            if img.ndim == 3:
+                a = a[..., None]
+            v = img[r0:r1, c0:c1].astype(np.int64)
+            img[r0:r1, c0:c1] = (2 * (v * (255 - a) + col * a) + 255) // 510
+        x += adv
+
+
+def add_weighted_u8(a: np.ndarray, alpha: float, b: np.ndarray,
+                    beta: float) -> np.ndarray:
+    """``cv.addWeighted(a, alpha, b, beta, 0)`` of uint8 images: in float32
+    as OpenCV's vector loop computes it, ``fma(a, alpha, b * beta)``,
+    rounded half to even and saturated."""
+    inner = b.astype(np.float32) * np.float32(beta)
+    out = fma_f32(a.astype(np.float32), np.float32(alpha), inner)
+    return np.clip(np.rint(out), 0, 255).astype(np.uint8)
+
+
+def _jet_lut() -> np.ndarray:
+    """(256, 3) uint8 BGR of ``cv.COLORMAP_JET``: each channel a ramp of 4
+    levels a step between half-integers, rounded half to even (blue rises
+    from 127.5 at 0, is 255 from 32 to 95 and falls to 0 at 160; green and
+    red follow 64 and 128 steps later), except where OpenCV's float32
+    interpolation of its table rounds a half down: blue 1.5 at 159."""
+    i = np.arange(256)
+    ramps = [np.minimum(4 * i + a + 0.5, b + 0.5 - 4 * i)
+             for a, b in ((127, 637), (-129, 891), (-383, 1147))]
+    lut = np.clip(np.rint(np.stack(ramps, axis=-1)), 0, 255).astype(np.uint8)
+    lut[159, 0] = 1
+    return lut
+
+
+JET_LUT = _jet_lut()
+
+
+def apply_colormap_jet(img: np.ndarray) -> np.ndarray:
+    """``cv.applyColorMap(img, cv.COLORMAP_JET)`` of a uint8 image of 1
+    channel: (..., 3) BGR."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8:
+        raise ValueError(f"applyColorMap takes uint8 images, got {img.dtype}")
+    if img.ndim == 3 and img.shape[2] == 3:       # cv2 maps the gray image
+        from torchfcn.data.manifest import bgr2gray_u8
+        img = bgr2gray_u8(img)
+    return JET_LUT[img.reshape(img.shape[:2])]

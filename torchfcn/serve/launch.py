@@ -18,9 +18,9 @@ resolved onto one TopicBus (or a ``RemoteTopicBus`` across processes):
     graph.bus.publish(...); graph.spin()
 
 The detector node and the tool nodes' CNN codes run on the card unless
-their params say ``"device": "cpu"``.  The one param the port does not
-have yet, a detector's ``overlay_topic``, raises ``NotImplementedError``
-naming its ROADMAP item.
+their params say ``"device": "cpu"``.  A detector's ``overlay_topic``
+publishes each frame's overlay, drawn on the host
+(``torchfcn.serve.viz``).
 """
 
 from __future__ import annotations
@@ -76,9 +76,6 @@ def _make_detector(bus: TopicBus, params: Dict[str, Any],
     from torchfcn.serve.detector import Detector
     from torchfcn.serve.stream import DetectorNode, TiledSegmenter
 
-    if params.get("overlay_topic"):
-        from torchfcn.serve.stream import OVERLAY_MISSING
-        raise NotImplementedError(OVERLAY_MISSING)
     model_name = params.get("model", "googlenet_detectnet")
     spec = get_spec(model_name)
     mkw = {}
@@ -144,6 +141,7 @@ def _make_detector(bus: TopicBus, params: Dict[str, Any],
     return DetectorNode(
         bus, detector=detector, mode=mode, tiled=tiled,
         names=names,
+        overlay_topic=params.get("overlay_topic"),
         micro_batch=int(params.get("micro_batch", 1)),
         flush_after_ms=(float(params["flush_after_ms"])
                         if "flush_after_ms" in params else None),

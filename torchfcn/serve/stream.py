@@ -34,10 +34,6 @@ from torchfcn.core.config import IMAGENET_BGR_MEAN
 from torchfcn.data.raster import largest_contour_rect, resize_linear_f32
 from torchfcn.serve.bus import Message, TopicBus
 
-OVERLAY_MISSING = ("the detection overlay (cv2 drawing with Hershey text) "
-                   "is not ported yet: ROADMAP Queue 1, viz.py and the "
-                   "overlay")
-
 
 @dataclasses.dataclass
 class RectsMsg:
@@ -144,8 +140,10 @@ class DetectorNode:
     shape) and the pad outputs are dropped; ``flush()`` at stream end.
     ``flush_after_ms`` bounds a buffered frame's staleness: checked when a
     frame arrives and from a bus spin hook, so a silent stream flushes too.
-    ``names``: class display names from a label manifest.  The overlay
-    topic is not ported (it raises).
+    ``names``: class display names from a label manifest.
+    ``overlay_topic``: publish the reference's class-coloured, alpha-
+    blended overlay of each frame (``torchfcn.serve.viz.draw_detections``,
+    drawn on the host) under the frame's stamp.
 
     A ``detector`` on a mesh of several ranks (``Detector(mesh=...)``, the
     launch param ``mesh``): rank 0 leads, subscribing to the bus and
@@ -170,8 +168,6 @@ class DetectorNode:
                  micro_batch: int = 1,
                  flush_after_ms: Optional[float] = None,
                  timer=None):
-        if overlay_topic:
-            raise NotImplementedError(OVERLAY_MISSING)
         self.bus = bus
         self.mode = mode
         self.names = list(names) if names else None
@@ -187,6 +183,7 @@ class DetectorNode:
         self.rects_topic = rects_topic
         self.pmap_topic = pmap_topic
         self.publish_rects = publish_rects
+        self.overlay_topic = overlay_topic
         self.timer = timer   # optional torchfcn.utils.profiling.StageTimer
         self.micro_batch = max(1, int(micro_batch))
         self.flush_after_ms = flush_after_ms
@@ -276,6 +273,11 @@ class DetectorNode:
             confs = [c for _, _, c in dets]
             self.bus.publish(self.rects_topic,
                              RectsMsg(pts, labels, confs), stamp=stamp)
+        if self.overlay_topic:
+            from torchfcn.serve.viz import draw_detections
+            self.bus.publish(self.overlay_topic,
+                             draw_detections(frame, dets, self.names),
+                             stamp=stamp)
 
     def _dispatch(self):
         # chunk at micro_batch: after a failed dispatch restores its frames,

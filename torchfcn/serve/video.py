@@ -6,12 +6,15 @@ the frames of a video file and their source stamps, as a ``rosbag play`` of
 the camera topic would.  The JAX package decodes through
 ``cv2.VideoCapture``; the card's host has no cv2, so this module reads the
 container itself: Motion-JPEG in an AVI (RIFF) file, the format of USB
-cameras and of OpenCV's own ``MJPG`` writer.  Each frame is a baseline JPEG
-decoded by ``torchfcn.data.jpeg.decode``, so its pixels are those of
-``cv.imdecode`` of the frame's bytes (and of ``cv.VideoCapture(path,
-cv.CAP_OPENCV_MJPEG)``), bit for bit.  OpenCV's default backend, FFmpeg,
-has its own IDCT and colour conversion, whose pixels differ from these by a
-few units (ROADMAP Queue 3 item 8); stamps and frame counts are the same.
+cameras and of OpenCV's own ``MJPG`` writer.  Each frame is decoded by
+``torchfcn.data.jpeg.decode_ffmpeg`` as ``cv.VideoCapture(path)`` decodes it
+through FFmpeg: FFmpeg's MJPEG decoder (its integer ``simple_idct``) and
+swscale's conversion to BGR, bit for bit for 4:2:0 and 4:2:2 frames of
+even height, 4:4:4 and gray frames.  Frames of odd height and 4:4:0 frames
+go through swscale's bicubic chroma scaler, which is not copied (ROADMAP
+Queue 3 item 8).  ``cv.imdecode`` of a frame (libjpeg's arithmetic, which
+``torchfcn.data.jpeg.decode`` and ``imread`` keep) differs from these
+pixels by a few units.
 
 The reader walks ``RIFF AVI `` and any ``AVIX`` extensions: the first video
 stream's ``strh`` / ``strf`` in ``LIST hdrl``, then its ``##dc`` / ``##db``
@@ -32,7 +35,7 @@ from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 
-from torchfcn.data.jpeg import decode
+from torchfcn.data.jpeg import decode_ffmpeg
 
 __all__ = ["iter_video_frames", "read_video_frames", "avi_frame_chunks"]
 
@@ -149,8 +152,8 @@ def iter_video_frames(path: str,
                 if max_frames is not None and yielded >= max_frames:
                     return
                 start, size = frames[idx]
-                yield idx / fps, decode(buf[start:start + size],
-                                        f"{path}, frame {idx}")
+                yield idx / fps, decode_ffmpeg(buf[start:start + size],
+                                               f"{path}, frame {idx}")
                 yielded += 1
 
 
